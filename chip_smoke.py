@@ -11,18 +11,25 @@ the script with a non-zero exit and no result line:
     and CUDA versions; TF32 off; every kernel built from the sources in
     the checkout (one nvcc per source, all started together).
  2. kernels — each kernel against its plain PyTorch version computed in
-    float64 on the card, at the shapes the main path gives it, timed with
+    float64 on the card, at the shapes the main paths give it, timed with
     CUDA events (the card's time, and the time per call with the host's
-    share) beside its bound, its plain version and a library yardstick.
-    One JSON line per shape.
- 3. main path — ``repro_torch.api.build(spec, device="cuda").run()`` on
-    the quickstart spec (examples/quickstart.py) at scale 6: two-track,
-    then batch.  Launch counts are zeroed just before and read just after;
-    every kernel of the path must have launched, and linear_value_grad
-    exactly once per optimizer step the traces imply.
- 4. card against CPU — the same workload under fixed_steps on the card
-    and on the CPU (plain versions): clock and access columns equal,
-    f̂ within rtol 1e-4.
+    share) beside its bound, its plain version and a library yardstick
+    where one PyTorch call computes the same function.  One JSON line per
+    shape.  B1 (linear_value_grad), then B3 (ssm_scan), whose plain
+    version is timed as a CUDA graph replay (graph_ms).
+ 3. main paths — ``repro_torch.api.build(spec, device="cuda").run()``,
+    each path with the launch counts zeroed just before it and read just
+    after:
+    a. convex: the quickstart spec (examples/quickstart.py) at scale 6,
+       two-track then batch; linear_value_grad launches exactly once per
+       optimizer step the traces and the race overshoot imply;
+    b. LM: falcon-mamba-7b at its full published width, depth cut to 4
+       layers, two-track (launch/train.py's spec); ssm_scan launches
+       num_layers times per forward pass the trace and the race
+       overshoot imply; f̂ on the eval probe falls; one line per stage.
+ 4. card against CPU — the convex workload, and the reduced LM in
+    float32, under fixed_steps on the card and on the CPU (plain
+    versions): clock and access columns equal, f̂ within rtol 1e-4.
 
 Then the ``{"kernels": [...]}`` line, and last ``{"ok": true, ...}``.
 """
@@ -51,10 +58,23 @@ PEAK_F32_FLOPS_S = 67e12
 # a racy reduction (all far above 1e-3).
 RTOL_L = 1e-5
 TOL_G = 1e-4
-# card-vs-CPU main path: the same algorithm in float32 with different
-# summation orders (cuBLAS and the kernel vs CPU BLAS); 1e-4 relative on
-# f̂ after ~100 Newton-CG steps
+# card-vs-CPU main paths: the same algorithm in float32 with different
+# summation orders (cuBLAS and the kernels vs CPU BLAS and the plain
+# versions); 1e-4 relative on f̂ after ~100 Newton-CG steps, and after 6
+# AdamW steps of the reduced LM (each moves a weight by about lr, so
+# gradients that differ in the last digits move them alike)
 RTOL_F = 1e-4
+
+# B3 against its float64 plain version (elementwise, relative to
+# max(1, |y|)): float32 carries h in float32 and takes exp as exp2 on the
+# SFU (2 ulp) over S steps of a contracting recurrence, rounding near
+# 1e-6, so 1e-4; bfloat16 rounds y itself to bfloat16 (half an ulp is
+# 2^-9 = 2e-3), so 1e-2.  A dropped step, a wrong state or a wrong decay
+# is far above both.
+SCAN_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# H100 SXM: 132 SMs, 16 SFU results a clock each, 1.98 GHz boost (NVIDIA
+# Hopper whitepaper; CUDA guide throughput table for compute capability 9.0)
+SFU_EXP_S = 132 * 16 * 1.98e9
 
 MAIN_SHAPE = (49152, 300)       # w8a_like at scale 6: the main path's full window
 # (label, n, d, how the data is made)
@@ -67,6 +87,18 @@ KERNEL_SHAPES = [
     ("small", 200, 32, ("randn",)),
 ]
 LOSSES = ("squared_hinge", "logistic")
+
+# the LM main path (launch/train.py:76-128, two_track): falcon-mamba-7b at
+# full width, 4 of its 64 identical layers
+LM_LAYERS = 4
+LM_BATCH, LM_SEQ = 8, 256
+LM_CORPUS, LM_MAX_STAGE_ITERS = 512, 16
+# B3 shapes: (label, B, S, di, N); the first is what the LM path gives it
+SCAN_SHAPES = [
+    ("falcon-mamba-7b", LM_BATCH, LM_SEQ, 8192, 16),
+    ("ragged", 3, 77, 8192 + 40, 16),
+    ("small", 1, 32, 64, 4),
+]
 
 
 def emit(obj) -> None:
@@ -122,6 +154,41 @@ def time_ms(torch, fn, spin_rate: float, iters: int = 30) -> dict:
         raise SystemExit(f"enqueue took {enqueue_s:.4f} s, longer than the "
                          f"{spin_s:.4f} s spin: the device time is not clean")
     return {"ms": start.elapsed_time(end) / iters, "call_ms": call_ms}
+
+
+def graph_ms(torch, fn, iters: int = 10) -> dict:
+    """Card time of ``fn`` for a function of thousands of small launches
+    (the plain scan's Python loop), whose enqueue outruns any spin: the
+    launch queue fills behind the spin kernel and blocks the host.  One
+    call is captured into a CUDA graph and replayed back to back, which
+    the card runs without host gaps (``ms``); ``call_ms`` is the eager
+    calls back to back, as a caller issues them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    graph.replay()
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / iters
+    del graph
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return {"ms": ms, "call_ms": start.elapsed_time(end) / iters}
 
 
 def bounds_ms(n: int, d: int) -> dict:
@@ -196,6 +263,70 @@ def kernel_phase(torch, rt) -> dict:
     return main
 
 
+def scan_bounds_ms(B: int, S: int, di: int, N: int, elt: int) -> dict:
+    """Least time for ssm_scan's work: read u, delta (B, S, di), B, C
+    (B, S, N), A_log (di, N) and D (di,) once, write y once; per (t,
+    channel) N·(multiply, exp, 2 FMAs = 4 flops) + 3 float32 operations.
+    The exps run on the SFU, whose rate the peak table does not give:
+    ``sfu_bound_ms`` states them at 16 a clock per SM beside the bound."""
+    bytes_ = elt * (3 * B * S * di + 2 * B * S * N) + 4 * (di * N + di)
+    flops = B * S * di * (6 * N + 3)
+    b_ms = bytes_ / PEAK_BYTES_S * 1e3
+    f_ms = flops / PEAK_F32_FLOPS_S * 1e3
+    return {"bound_ms": max(b_ms, f_ms), "bytes_bound_ms": b_ms,
+            "flops_bound_ms": f_ms,
+            "sfu_bound_ms": B * S * di * N / SFU_EXP_S * 1e3,
+            "bound_by": "bytes" if b_ms >= f_ms else "operations"}
+
+
+def scan_inputs(torch, gen, B, S, di, N, dtype):
+    """The reference test's distributions: u, B, C standard normal,
+    delta = softplus(normal), A_log = log(1..N), D normal."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    u, dt = randn(B, S, di), torch.nn.functional.softplus(randn(B, S, di))
+    Bs, Cs = randn(B, S, N), randn(B, S, N)
+    A_log = torch.log(torch.arange(1, N + 1, dtype=torch.float32,
+                                   device="cuda")).expand(di, N).contiguous()
+    return [x.to(dtype) for x in (u, dt, Bs, Cs)] + [A_log, randn(di)]
+
+
+def scan_kernel_phase(torch, rt) -> dict:
+    ops, ref = rt["ops"], rt["ref"]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    spin_rate = spin_cycles_per_s(torch)
+    main = None
+    for label, B, S, di, N in SCAN_SHAPES:
+        for dname in ("bfloat16", "float32"):
+            dtype = getattr(torch, dname)
+            args = scan_inputs(torch, gen, B, S, di, N, dtype)
+            y = ops.ssm_scan(*args)
+            torch.cuda.synchronize()
+            y64 = ref.ssm_scan(*(a.double() for a in args))
+            err = (y.double() - y64).abs()
+            max_abs = float(err.max())
+            rel = float((err / (1.0 + y64.abs())).max())
+            ok = bool(torch.isfinite(y).all()) and rel <= SCAN_TOL[dname]
+            row = {"kernel": "ssm_scan", "shape": label, "B": B, "S": S,
+                   "di": di, "N": N, "dtype": dname, "max_abs_err": max_abs,
+                   "max_rel_err": rel, "tol": SCAN_TOL[dname],
+                   **scan_bounds_ms(B, S, di, N, y.element_size()),
+                   "library_ms": None, "check": "pass" if ok else "FAIL"}
+            for k, t in (
+                    ("kernel", time_ms(torch, lambda: ops.ssm_scan(*args),
+                                       spin_rate)),
+                    ("plain", graph_ms(torch, lambda: ref.ssm_scan(*args)))):
+                row[f"{k}_ms"], row[f"{k}_call_ms"] = t["ms"], t["call_ms"]
+            emit(row)
+            if not ok:
+                raise SystemExit(f"ssm_scan disagrees with its float64 plain "
+                                 f"version at {label}/{dname}: {rel}")
+            if label == SCAN_SHAPES[0][0] and dname == "bfloat16":
+                main = row
+            del args, y, y64, err
+    return main
+
+
 def quickstart_specs(api):
     data = api.DataSpec(dataset="w8a_like", scale=6.0, lam=1e-3)
     base = dict(data=data,
@@ -235,14 +366,19 @@ def main_path_phase(torch, rt) -> int:
         torch.cuda.synchronize()
         walls[name] = time.perf_counter() - t0
     launches = dict(ops.CALLS)
+    # two launches per race step (the steps run past a trigger and rolled
+    # back included), one per final-phase and batch step
+    overshoot = sum(tr.meta["race_overshoot"] for tr in traces.values())
     implied = sum(2 if "f_fast_on_t" in p.extra else 1
-                  for tr in traces.values() for p in tr.points)
+                  for tr in traces.values() for p in tr.points) \
+        + 2 * overshoot
     for name, sess in sessions.items():
         tr = traces[name]
         row = {"run": name, "stages": tr.meta["stages"],
                "steps": len(tr.points), "sim_time": sess.clock.time,
                "data_accesses": sess.clock.data_accesses,
                "host_transfers": tr.meta["host_transfers"],
+               "race_overshoot": tr.meta["race_overshoot"],
                "wall_s": walls[name], "f_full": tr.final().f_full,
                "log_rfvd": float(linear.rfvd(objective, tr.params, full,
                                              f_star)),
@@ -264,7 +400,8 @@ def main_path_phase(torch, rt) -> int:
     if reached != planned:
         raise SystemExit(f"two_track reached windows {reached}, its stage "
                          f"plan has {planned}")
-    emit({"launches": launches, "implied_optimizer_steps": implied})
+    emit({"path": "convex", "launches": launches,
+          "implied_optimizer_steps": implied, "race_overshoot": overshoot})
     if launches.get("linear_value_grad", 0) != implied:
         raise SystemExit(f"linear_value_grad launched "
                          f"{launches.get('linear_value_grad', 0)} times, the "
@@ -298,6 +435,206 @@ def card_vs_cpu_phase(torch, rt) -> None:
                          f"{RTOL_F}")
 
 
+def lm_spec(api, *, reduced: bool, policy, corpus: int, seq_len: int,
+            n0: int, max_stage_iters: int | None = None):
+    """launch/train.py's LM RunSpec (to_run_spec): the host-slice token
+    path, adamw_lm, a batch-cost clock that waits on expansion and carries
+    the Adam moments across stages."""
+    if reduced:
+        model = api.ModelSpec(arch="falcon-mamba-7b", reduced=True,
+                              overrides={"dtype": "float32"})
+    else:
+        model = api.ModelSpec(arch="falcon-mamba-7b", reduced=False,
+                              overrides={"num_layers": LM_LAYERS})
+    if policy == "two_track":
+        pol = api.PolicySpec("two_track", {
+            "final_steps": 8, "max_stage_iters": max_stage_iters,
+            "condition": "eval", "final_eval_full": True})
+    else:
+        pol = api.PolicySpec("fixed_steps", {"inner_steps": 3,
+                                             "final_steps": 3})
+    return api.RunSpec(
+        name=f"lm_{policy}",
+        data=api.DataSpec(kind="lm", corpus_size=corpus, seq_len=seq_len,
+                          eval_rows=16, plane="host"),
+        model=model, policy=pol,
+        optimizer=api.OptimizerSpec("adamw_lm", {"lr": 3e-4,
+                                                 "batch_size": LM_BATCH}),
+        schedule=api.ScheduleSpec(n0=n0, step_cost="batch",
+                                  wait_on_expand=True, carry_state=True,
+                                  clock={"preloaded": n0}))
+
+
+def lm_main_path_phase(torch, rt) -> dict:
+    api, ops = rt["api"], rt["ops"]
+    spec = lm_spec(api, reduced=False, policy="two_track", corpus=LM_CORPUS,
+                   seq_len=LM_SEQ, n0=64, max_stage_iters=LM_MAX_STAGE_ITERS)
+    t0 = time.perf_counter()
+    sess = api.build(spec, device="cuda")
+    cfg = sess.model_config
+    n_params = sum(t.numel() for t in (sess.w0["embed"], sess.w0["lm_head"],
+                                       sess.w0["final_norm"],
+                                       *sess.w0["stack_ssm"].values()))
+    f0 = float(sess.objective(sess.w0, sess.eval_data))
+    torch.cuda.synchronize()
+    emit({"path": "lm", "arch": cfg.name, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "d_inner": cfg.d_inner,
+          "ssm_state": cfg.ssm_state, "dt_rank": cfg.dt_rank,
+          "vocab": cfg.vocab_size, "dtype": str(cfg.dtype),
+          "params": n_params, "build_s": time.perf_counter() - t0,
+          "f_full_w0": f0, "spec": spec.to_dict()})
+    stamps, record = [], sess.engine.stage_callback
+
+    def timed(end):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        record(end)
+
+    sess.engine.stage_callback = timed
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_calls()
+    t0 = time.perf_counter()
+    tr = sess.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.CALLS)
+    peak = torch.cuda.max_memory_allocated()
+    peak_reserved = torch.cuda.max_memory_reserved()
+    prev = {"step_count": 0, "transfers": 0, "overshoot": 0}
+    f_before, t_prev = f0, t0
+    for end, stamp in zip(sess.stage_ends, stamps):
+        pts = [p for p in tr.points if p.stage == end["stage"]]
+        stage_s = stamp - t_prev
+        emit({"path": "lm", "stage": end["stage"], "window": end["n_t"],
+              "racing": "f_fast_on_t" in pts[0].extra, "steps": len(pts),
+              "host_transfers": end["transfers"] - prev["transfers"],
+              "race_overshoot": end["overshoot"] - prev["overshoot"],
+              "wall_s": stage_s, "wall_s_per_step": stage_s / len(pts),
+              "f_full_before": f_before, "f_full_after": pts[-1].f_full,
+              "f_window_last": pts[-1].f_window})
+        prev, f_before, t_prev = end, pts[-1].f_full, stamp
+    pol = sess.policy
+    race = sum("f_fast_on_t" in p.extra for p in tr.points)
+    final = len(tr.points) - race
+    overshoot = tr.meta["race_overshoot"]
+    # a race step: a train step on each track, then f̂_t of the fast track
+    # and f̂ of the slow one, plus f̂_t of the slow one under "eval"; a
+    # final step: a train step, plus f̂ when final_eval_full
+    race_evals = 3 if pol.condition == "eval" else 2
+    final_evals = 1 if pol.final_eval_full else 0
+    train_steps = 2 * (race + overshoot) + final
+    evals = race_evals * (race + overshoot) + final_evals * final
+    implied = cfg.num_layers * (train_steps + evals)
+    values = (tr.column("f_window") + tr.column("f_full")
+              + [p.extra["f_fast_on_t"] for p in tr.points
+                 if "f_fast_on_t" in p.extra])
+    summary = {"path": "lm", "stages": tr.meta["stages"],
+               "race_steps": race, "final_steps": final,
+               "race_overshoot": overshoot,
+               "host_transfers": tr.meta["host_transfers"],
+               "train_steps": train_steps, "objective_evals": evals,
+               "launches": launches, "implied_ssm_scan": implied,
+               "wall_s": wall, "peak_memory_gb": peak / 1e9,
+               "peak_reserved_gb": peak_reserved / 1e9,
+               "f_full_w0": f0, "f_full_final": tr.final().f_full,
+               "sim_time": sess.clock.time,
+               "data_accesses": sess.clock.data_accesses}
+    emit(summary)
+    if not all(math.isfinite(v) for v in values):
+        raise SystemExit("LM: non-finite loss in the trace")
+    if not tr.final().f_full < f0:
+        raise SystemExit(f"LM: f̂ on the eval probe did not fall "
+                         f"({f0} -> {tr.final().f_full})")
+    if launches.get("ssm_scan", 0) != implied:
+        raise SystemExit(f"ssm_scan launched {launches.get('ssm_scan', 0)} "
+                         f"times, the trace implies {implied}")
+    lm_step_breakdown(torch, rt, sess, tr.params)
+    del sess, tr
+    torch.cuda.empty_cache()
+    return summary
+
+
+def lm_step_breakdown(torch, rt, sess, params) -> None:
+    """Where a train step's time goes: host-clock segments, each ended by
+    a synchronize, of one step taken apart (forward with the graph, the
+    backward, the AdamW update), one f̂ probe, and the scan's own share of
+    the backward (the kernel forward and the plain version's VJP at the
+    LM shape, once per layer).  Taken after the main path's counts were
+    read; the launches here are not counted there."""
+    T, adam, tree_map = rt["transformer"], rt["adam"], rt["tree_map"]
+    cfg = sess.model_config
+    rows = sess.dataset.window(LM_BATCH)
+    batch = {"tokens": rows[:, :-1], "labels": rows[:, 1:]}
+    opt_state = adam.adamw_init(params)
+    seg = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seg[name] = seg.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    for rep in range(2):                # the first is a warm-up
+        seg.clear()
+        p = tree_map(lambda x: x.detach().requires_grad_(True), params)
+        with torch.enable_grad():
+            loss = timed("forward_s", lambda: T.loss_fn(
+                cfg, p, batch, impl="pallas")[0])
+            leaves = rt["tree_leaves"](p)
+            flat = timed("backward_s",
+                         lambda: torch.autograd.grad(loss, leaves))
+        it = iter(flat)
+        grads = tree_map(lambda _: next(it), p)
+        timed("adamw_s", lambda: adam.adamw_update(
+            params, grads, opt_state, lr=3e-4, weight_decay=0.1))
+        timed("probe_s", lambda: sess.objective(params, sess.eval_data))
+        del p, loss, flat, grads
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        args = scan_inputs(torch, gen, LM_BATCH, LM_SEQ, cfg.d_inner,
+                           cfg.ssm_state, cfg.dtype)
+        args = [a.requires_grad_(True) for a in args]
+        y = timed("scan_forward_s", lambda: rt["ops"].ssm_scan(*args))
+        timed("scan_vjp_s", lambda: y.backward(torch.ones_like(y)))
+        del args, y
+    emit({"path": "lm", "breakdown": "one train step", **seg,
+          "layers": cfg.num_layers,
+          "scan_vjp_all_layers_s": seg["scan_vjp_s"] * cfg.num_layers})
+
+
+def lm_card_vs_cpu_phase(torch, rt) -> None:
+    """The reduced LM in float32 under fixed_steps, on the card and on the
+    CPU from the same parameters (the CPU session's, carried across)."""
+    api = rt["api"]
+    spec = lm_spec(api, reduced=True, policy="fixed_steps", corpus=32,
+                   seq_len=32, n0=16)
+    cpu_sess = api.build(spec, device="cpu")
+    gpu_sess = api.build(spec, device="cuda")
+    gpu_sess.w0 = rt["tree_map"](lambda t: t.cuda(), cpu_sess.w0)
+    out = {}
+    for device, sess in (("cuda", gpu_sess), ("cpu", cpu_sess)):
+        t0 = time.perf_counter()
+        out[device] = sess.run()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        out[device + "_wall_s"] = time.perf_counter() - t0
+    gpu, cpu = out["cuda"], out["cpu"]
+    for col in ("step", "stage", "window", "time", "accesses"):
+        if gpu.column(col) != cpu.column(col):
+            raise SystemExit(f"LM fixed_steps card/CPU column {col!r} "
+                             f"differs")
+    rel = float(np.max(np.abs(np.array(gpu.column("f_full"))
+                              - np.array(cpu.column("f_full")))
+                       / np.abs(np.array(cpu.column("f_full")))))
+    emit({"card_vs_cpu": "lm_fixed_steps", "steps": len(gpu.points),
+          "columns_equal": True, "max_rel_f_full": rel, "rtol": RTOL_F,
+          "cuda_wall_s": out["cuda_wall_s"], "cpu_wall_s": out["cpu_wall_s"]})
+    if not rel <= RTOL_F:
+        raise SystemExit(f"LM fixed_steps f_full card/CPU rel diff {rel} > "
+                         f"{RTOL_F}")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -309,8 +646,12 @@ def main() -> None:
     from repro_torch.data import synthetic
     from repro_torch.kernels import build, linear_grad, ops, ref
     from repro_torch.models import linear
+    from repro_torch.models import transformer
+    from repro_torch.optim import adam
+    from repro_torch.optim.api import tree_leaves, tree_map
     rt = dict(api=api, synthetic=synthetic, linear_grad=linear_grad,
-              ops=ops, ref=ref, linear=linear)
+              ops=ops, ref=ref, linear=linear, transformer=transformer,
+              adam=adam, tree_map=tree_map, tree_leaves=tree_leaves)
 
     # 1. environment
     smi = subprocess.run(
@@ -334,10 +675,13 @@ def main() -> None:
 
     # 2. kernels against their plain versions
     main_row = kernel_phase(torch, rt)
-    # 3. the main path, with launch counts
+    scan_row = scan_kernel_phase(torch, rt)
+    # 3. the main paths, each with its own launch counts
     launches = main_path_phase(torch, rt)
+    lm = lm_main_path_phase(torch, rt)
     # 4. card against CPU
     card_vs_cpu_phase(torch, rt)
+    lm_card_vs_cpu_phase(torch, rt)
 
     emit({"kernels": [{
         "name": "linear_value_grad", "route": "cuda",
@@ -348,7 +692,19 @@ def main() -> None:
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
         "call_ms": main_row["kernel_call_ms"],
-        "shape": list(MAIN_SHAPE), "check": main_row["check"]}]})
+        "shape": list(MAIN_SHAPE), "check": main_row["check"]}, {
+        "name": "ssm_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+        "replaces": "src/repro/kernels/ssm_scan.py:45",
+        "launches": lm["launches"]["ssm_scan"],
+        "max_abs_err": scan_row["max_abs_err"],
+        "ms": scan_row["kernel_ms"], "plain_ms": scan_row["plain_ms"],
+        "bound_ms": scan_row["bound_ms"], "bound_by": scan_row["bound_by"],
+        "library_ms": None, "call_ms": scan_row["kernel_call_ms"],
+        "sfu_bound_ms": scan_row["sfu_bound_ms"],
+        "shape": [scan_row["B"], scan_row["S"], scan_row["di"],
+                  scan_row["N"]], "dtype": scan_row["dtype"],
+        "check": scan_row["check"]}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -27,6 +27,9 @@ class Registry:
         self._entries: dict[str, Any] = dict(entries or {})
         self.pending: dict[str, str] = dict(pending or {})
 
+    def names(self) -> list[str]:
+        return sorted(self._entries)
+
     def get(self, name: str) -> Any:
         try:
             return self._entries[name]
@@ -59,12 +62,16 @@ POLICIES = Registry("policy", {
 })
 
 # --------------------------------------------------------------- optimizers
-OPTIMIZERS = Registry("optimizer", dict(_OPTIM_REGISTRY), pending={
+# "adamw_lm" marks the LM train-step optimizer: it is built by the session
+# (it needs the ModelSpec's train step), not by a bare params call.
+LM_OPTIMIZER = "adamw_lm"
+OPTIMIZERS = Registry("optimizer",
+                      {**_OPTIM_REGISTRY, LM_OPTIMIZER: LM_OPTIMIZER},
+                      pending={
     "cg": "the remaining optimizers (ROADMAP queue A3)",
     "lbfgs": "the remaining optimizers (ROADMAP queue A3)",
     "adagrad": "the remaining optimizers (ROADMAP queue A3)",
     "adamw": "the remaining optimizers (ROADMAP queue A3)",
-    "adamw_lm": "the LM slice (ROADMAP queue A9)",
 })
 
 
@@ -90,6 +97,10 @@ def build_policy(spec: PolicySpec) -> ExpansionPolicy:
 def build_optimizer(spec: OptimizerSpec) -> BatchOptimizer:
     """OptimizerSpec -> BatchOptimizer."""
     cls = OPTIMIZERS.get(spec.name)
+    if cls == LM_OPTIMIZER:
+        raise SpecError(
+            f"optimizer {spec.name!r} is the LM train step: it needs a "
+            f"ModelSpec and is built by the session, not standalone")
     try:
         return cls(**spec.params)
     except TypeError as e:

@@ -1,13 +1,16 @@
 """``build(RunSpec, device=...) -> Session`` — compose and drive the BET
 stack the spec describes.
 
-This slice carries the convex branch: the paper's own loop (a synthetic
-``PAPER_LIKE`` problem, the Eq. 1 objective, a ported inner optimizer and
-policy) on one device.  ``build`` validates the spec eagerly: unknown
-names and invalid combinations fail with a :class:`SpecError` as in the
-reference, and every branch a later slice brings (the LM path, the
-streaming plane, multiple hosts, tiering, elastic faults, checkpoints,
-observability, serving) fails with a :class:`SpecError` that names it.
+The port carries two branches on one device: the convex one, the paper's
+own loop (a synthetic ``PAPER_LIKE`` problem, the Eq. 1 objective, a
+ported inner optimizer and policy), and the LM one on the host-slice
+token path (``DataSpec(kind="lm", plane="host")``) for the model families
+ported so far (``workloads/families.py``).  ``build`` validates the spec
+eagerly: unknown names and invalid combinations fail with a
+:class:`SpecError` as in the reference, and every branch a later slice
+brings (the streaming plane, multiple hosts, tiering, elastic faults,
+checkpoints, observability, serving, the other model families) fails
+with a :class:`SpecError` that names it.
 
 ``device`` is a keyword of ``build`` and ``convex_problem``, not a spec
 field, so the ``RunSpec`` JSON schema stays the reference's.  It defaults
@@ -19,16 +22,22 @@ import dataclasses
 import functools
 from typing import Callable
 
+import numpy as np
 import torch
 
+from .. import configs
 from ..core.engine import BETSchedule, BetEngine, StageEnd, StageInfo
 from ..core.timemodel import SimulatedClock
 from ..core.trace import Trace
 from ..data.synthetic import PAPER_LIKE, load, make_classification
+from ..data.window import synth_corpus
 from ..device import resolve_device
+from ..models.common import ModelConfig
 from ..models.linear import LOSSES, init_params, make_objective
-from .registry import OPTIMIZERS, build_optimizer, build_policy
-from .specs import DataSpec, RunSpec, SpecError, TieringSpec
+from ..workloads.families import resolve_family
+from .lm import TokenWindows
+from .registry import LM_OPTIMIZER, OPTIMIZERS, build_optimizer, build_policy
+from .specs import DataSpec, ModelSpec, RunSpec, SpecError, TieringSpec
 
 
 # ------------------------------------------------------------ convex problem
@@ -93,9 +102,6 @@ def _validate(spec: RunSpec) -> None:
         raise SpecError(f"TopologySpec.hosts must be >= 1, got {hosts}")
 
     # branches later slices bring
-    if d.kind == "lm":
-        raise _not_ported("the LM path (DataSpec.kind='lm')",
-                          "the LM slice (ROADMAP queue A9)")
     if d.plane == "plane":
         raise _not_ported("the streaming data plane (DataSpec.plane="
                           "'plane')", "the data-plane slice (ROADMAP "
@@ -144,6 +150,53 @@ def _validate(spec: RunSpec) -> None:
         raise SpecError(f"capacity_slack must be >= 1, "
                         f"got {spec.elastic.capacity_slack}")
 
+    if d.kind == "lm":
+        if spec.model is None:
+            raise SpecError("an LM run needs a ModelSpec (RunSpec.model)")
+        if spec.optimizer.name != LM_OPTIMIZER:
+            raise SpecError(
+                f"the LM path trains through the {LM_OPTIMIZER!r} "
+                f"optimizer, got {spec.optimizer.name!r}")
+        bad = set(spec.optimizer.params) - {"lr", "batch_size"}
+        if bad:
+            raise SpecError(f"{LM_OPTIMIZER!r} accepts params 'lr' and "
+                            f"'batch_size', not {sorted(bad)}")
+        # family adapter resolution is itself an eager check: an explicit
+        # family that contradicts the arch fails here, not in the train step
+        resolve_family(spec.model, lm_config(spec.model))
+    elif spec.optimizer.name == LM_OPTIMIZER:
+        raise SpecError(f"{LM_OPTIMIZER!r} is the LM train step; a convex "
+                        f"run needs a batch optimizer "
+                        f"({[n for n in OPTIMIZERS.names() if n != LM_OPTIMIZER]})")
+
+
+def lm_config(model: ModelSpec) -> ModelConfig:
+    """The ``ModelConfig`` a ModelSpec names: the registered architecture,
+    ``configs.reduced`` when asked, then the overrides (a ``dtype``
+    override may be a torch dtype's name, e.g. ``"float32"``, so the spec
+    stays JSON)."""
+    try:
+        cfg = configs.get(model.arch)
+    except configs.NotPortedError as e:
+        raise SpecError(str(e)) from None
+    except KeyError:
+        raise SpecError(f"unknown arch {model.arch!r}; available: "
+                        f"{sorted(configs.ALIASES)}") from None
+    if model.reduced:
+        cfg = configs.reduced(cfg)
+    if model.overrides:
+        try:
+            cfg = cfg.with_(**model.overrides)
+        except TypeError as e:
+            raise SpecError(f"ModelSpec.overrides: {e}") from None
+    if isinstance(cfg.dtype, str):
+        dtype = getattr(torch, cfg.dtype, None)
+        if not isinstance(dtype, torch.dtype):
+            raise SpecError(f"ModelSpec.overrides: dtype {cfg.dtype!r} is "
+                            f"not a torch dtype")
+        cfg = cfg.with_(dtype=dtype)
+    return cfg
+
 
 # --------------------------------------------------------------- components
 def _step_cost(spec: RunSpec, optimizer) -> Callable[[int], int] | None:
@@ -157,18 +210,49 @@ def _step_cost(spec: RunSpec, optimizer) -> Callable[[int], int] | None:
     return lambda n_t: batch
 
 
-def _build_convex(spec: RunSpec, policy, device: torch.device) -> "Session":
-    ds, objective, w0 = convex_problem(spec.data, device=device)
-    optimizer = build_optimizer(spec.optimizer)
-    engine = BetEngine(
+def _make_engine(spec: RunSpec, optimizer) -> BetEngine:
+    return BetEngine(
         schedule=BETSchedule(n0=spec.schedule.n0, growth=spec.schedule.growth),
         step_cost=_step_cost(spec, optimizer),
         wait_on_expand=spec.schedule.wait_on_expand,
         carry_state=spec.schedule.carry_state)
+
+
+def _build_convex(spec: RunSpec, policy, device: torch.device) -> "Session":
+    ds, objective, w0 = convex_problem(spec.data, device=device)
+    optimizer = build_optimizer(spec.optimizer)
     return Session(spec, dataset=ds, optimizer=optimizer,
-                   objective=objective, policy=policy, engine=engine,
+                   objective=objective, policy=policy,
+                   engine=_make_engine(spec, optimizer),
                    clock=SimulatedClock(**spec.schedule.clock), w0=w0,
                    eval_data=(ds.X, ds.y), problem=ds, device=device)
+
+
+def _build_lm(spec: RunSpec, policy, device: torch.device) -> "Session":
+    """The reference's host-plane LM build (``TokenWindows``): the numpy
+    corpus from ``data.seed`` (bit-identical to the reference's), an eval
+    probe sliced from it on the host, and the family's parameters, train
+    step and probe objective on ``device``."""
+    data = spec.data
+    cfg = lm_config(spec.model)
+    family = resolve_family(spec.model, cfg)
+    corpus = synth_corpus(data.corpus_size, data.seq_len + 1,
+                          max(2, cfg.vocab_size), seed=data.seed)
+    eval_np = corpus[:: max(1, len(corpus) // data.eval_rows)][: data.eval_rows]
+    dataset = TokenWindows(torch.from_numpy(corpus).to(device))
+    eval_tokens = torch.from_numpy(np.ascontiguousarray(eval_np)).to(device)
+    params = family.build_params(cfg, data.seed, device=device)
+    optimizer = family.step(
+        cfg, lr=float(spec.optimizer.params.get("lr", 1e-3)),
+        batch_size=int(spec.optimizer.params.get("batch_size", 8)))
+    # clamp the probe to the eval set so a small eval block is an unweighted
+    # mean over distinct rows; stage windows below that size wrap instead
+    objective = family.objective(cfg, min(data.eval_rows, len(eval_np)))
+    return Session(spec, dataset=dataset, optimizer=optimizer,
+                   objective=objective, policy=policy,
+                   engine=_make_engine(spec, optimizer),
+                   clock=SimulatedClock(**spec.schedule.clock), w0=params,
+                   eval_data=eval_tokens, device=device, model_config=cfg)
 
 
 def build(spec: RunSpec | dict, *, device="cuda") -> "Session":
@@ -179,6 +263,8 @@ def build(spec: RunSpec | dict, *, device="cuda") -> "Session":
     _validate(spec)
     dev = resolve_device(device)
     policy = build_policy(spec.policy)
+    if spec.data.kind == "lm":
+        return _build_lm(spec, policy, dev)
     return _build_convex(spec, policy, dev)
 
 
@@ -194,7 +280,7 @@ class Session:
 
     def __init__(self, spec: RunSpec, *, dataset, optimizer, objective,
                  policy, engine, clock, w0, eval_data, problem=None,
-                 device=None):
+                 device=None, model_config=None):
         self.spec = spec
         self.dataset = dataset
         self.optimizer = optimizer
@@ -206,6 +292,7 @@ class Session:
         self.eval_data = eval_data
         self.problem = problem          # convex: the synthetic Dataset
         self.device = device
+        self.model_config = model_config    # LM: the ModelConfig
         self.trace: Trace | None = None
         self.stage_ends: list[dict] = []
         engine.stage_callback = self._stage_end
@@ -215,7 +302,7 @@ class Session:
             "stage": end.info.stage, "n_t": end.info.n_t,
             "n_next": end.info.n_next, "is_final": end.info.is_final,
             "step_count": end.step_count, "stages": end.stages,
-            "transfers": end.transfers})
+            "transfers": end.transfers, "overshoot": end.overshoot})
 
     def stage_plan(self) -> list[StageInfo]:
         """The stages the schedule + policy will run (before running)."""
@@ -228,10 +315,13 @@ class Session:
         ``probe(w)`` is the engine's per-step measurement hook (it gets the
         host copy of each step's parameters)."""
         spec = self.spec
+        meta = dict(spec.meta)
+        if self.model_config is not None:
+            meta.setdefault("arch", self.model_config.name)
         self.trace = self.engine.run(
             self.dataset, self.optimizer, self.objective, self.policy,
             w0=self.w0, clock=self.clock, eval_data=self.eval_data,
             trace_name=None if spec.name == "run" else spec.name,
-            meta=dict(spec.meta) or None, progress=progress, probe=probe)
+            meta=meta or None, progress=progress, probe=probe)
         return self.trace
 

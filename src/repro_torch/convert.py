@@ -4,8 +4,13 @@ The reference's pytrees (parameters such as ``w``, optimizer states such
 as ``{"t": ...}`` or ``{"alpha_prev": ...}``), exported on the reference's
 side as numpy arrays (``jax.device_get`` gives exactly that), become the
 port's tensors on ``device`` with their dtypes kept.  Written over nested
-dicts, lists and tuples, so model parameter trees of later slices go
-through the same function.
+dicts, lists and tuples, so model parameter trees go through the same
+function.
+
+A bfloat16 leaf of the reference arrives as a numpy array of the
+``ml_dtypes`` bfloat16 type, which ``torch.from_numpy`` refuses: it is
+recognised by the dtype's name, widened to float32 (exact) and cast back
+to ``torch.bfloat16``.
 """
 from __future__ import annotations
 
@@ -26,6 +31,9 @@ def params_from_jax(tree, device="cuda"):
         if isinstance(x, (list, tuple)):
             return type(x)(conv(v) for v in x)
         if isinstance(x, (np.ndarray, np.generic)):
+            if x.dtype.name == "bfloat16":
+                wide = np.asarray(x, dtype=np.float32)
+                return torch.from_numpy(wide).to(dev, torch.bfloat16)
             return torch.from_numpy(np.array(x, copy=True)).to(dev)
         if x is None or isinstance(x, (bool, int, float)):
             return x

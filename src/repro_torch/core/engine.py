@@ -18,10 +18,23 @@ Stages run on the device.  A scan stage's chunk is a Python loop of
 optimizer steps (each free of host syncs) that writes f̂_t(w) and f̂(w)
 into preallocated device tensors; the host pulls them with one transfer
 per chunk (``trace.meta["host_transfers"]`` counts the pulls), then replays
-the §4.2 clock charges.  The Two-Track race steps both tracks on the
-device, but reads condition (3)'s verdict on the host after every race
-step from the second on; each such read is a transfer and is counted, on
-top of the one pull of the stage's histories.
+the §4.2 clock charges.
+
+The Two-Track race runs in chunks whose cumulative sizes are 2, 4, 8, …:
+both tracks step through a chunk with no host read, the slow track's carry
+after each step stays referenced on the device as a snapshot, and one pull
+brings the chunk's histories to the host, which finds the first step that
+meets condition (3) and rolls the slow track back to its snapshot there.
+So a racing stage of s steps costs about ⌈log₂ s⌉ transfers.  The steps run
+past a trigger are counted in ``trace.meta["race_overshoot"]``; they never
+reach the trace or the clock.  A chunk keeps no more snapshots than
+``RACE_SNAPSHOT_BYTES`` holds: a carry too large for even one races in
+chunks of one step, which reads condition (3) once per step.
+
+Parameters and optimizer states may be single tensors (the convex path) or
+nested dicts of tensors (the LM path); optimizers are functional (a step
+returns new tensors), so both tracks can start from one ``w`` and a
+snapshot is a reference, not a copy.
 """
 from __future__ import annotations
 
@@ -32,9 +45,19 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from ..optim.api import BatchOptimizer, Objective
+from ..optim.api import BatchOptimizer, Objective, tree_leaves, tree_map
 from .timemodel import SimulatedClock
 from .trace import Trace
+
+
+# Device bytes the race's slow-track snapshots may hold within one chunk.
+# The convex carries are a few KB and never reach it.  The 4-layer
+# falcon-mamba-7b carry (parameters and AdamW moments) is 9.5 GB, and one
+# snapshot of it does not fit beside the run's peak on an 80 GB H100 (it
+# ran out of memory with one; PERF.md).  A cap measured from free memory
+# when the race starts misses the later stages' higher peak, so the
+# budget is a constant between the two.
+RACE_SNAPSHOT_BYTES = 1 << 30
 
 
 # ------------------------------------------------------------------ schedule
@@ -77,6 +100,7 @@ class StageEnd:
     step_count: int
     stages: int
     transfers: int
+    overshoot: int = 0
 
 
 # ------------------------------------------------------------------ protocol
@@ -125,9 +149,10 @@ class StageRecords:
     def param_at(self, i: int):
         """The (host) parameters after inner step ``i`` of this stage."""
         for chunk in self._params:
-            if i < len(chunk):
-                return chunk[i]
-            i -= len(chunk)
+            n = len(tree_leaves(chunk)[0])
+            if i < n:
+                return tree_map(lambda a: a[i], chunk)
+            i -= n
         raise IndexError(i)
 
 
@@ -272,11 +297,47 @@ class ComposedPolicy(ExpansionPolicy):
             p.stage_end(info, records)
 
 
+def tree_nbytes(tree) -> int:
+    """Device bytes held by the tensor leaves of ``tree``."""
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    # numpy has no bfloat16: such leaves come back widened to float32
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
 def _pull(ctx, tensors: dict) -> dict:
     """One device-to-host transfer of a chunk's records (the reference's
     one ``jax.device_get`` of a dict), counted in ``host_transfers``."""
     ctx["transfers"] += 1
-    return {k: v.cpu().numpy() for k, v in tensors.items()}
+    return tree_map(_host, tensors)
+
+
+def _param_buffer(w, k: int):
+    """Device buffers for ``k`` steps of parameters shaped like ``w``."""
+    return tree_map(lambda x: torch.empty((k,) + tuple(x.shape),
+                                          dtype=x.dtype, device=x.device), w)
+
+
+def _store(buf, s: int, w) -> None:
+    """Write step ``s``'s parameters into the buffers of ``_param_buffer``."""
+    def put(b, x):
+        b[s] = x
+    tree_map(put, buf, w)
+
+
+def _first_trigger(f_slow: np.ndarray, f_fast: np.ndarray, lo: int,
+                   hi: int) -> int | None:
+    """The first s in [lo, hi], s >= 2, at which condition (3) holds:
+    the slow track after ⌊s/2⌋ steps already beats the fast track after s
+    (``f_*[i]`` is the value after step i + 1)."""
+    for s in range(max(lo, 2), hi + 1):
+        if f_slow[max(0, s // 2 - 1)] < f_fast[s - 1]:
+            return s
+    return None
 
 
 # ---------------------------------------------------------------- the engine
@@ -316,7 +377,7 @@ class BetEngine:
         cost = self.step_cost or (lambda n: n)
         ctx = {"trace": trace, "clock": clock, "cost": cost,
                "probe": probe, "progress": progress, "dataset": dataset,
-               "step_count": 0, "transfers": 0, "stages": 0}
+               "step_count": 0, "transfers": 0, "stages": 0, "overshoot": 0}
 
         if policy.kind == "two_track":
             w, state = self._run_two_track(ctx, dataset, optimizer, objective,
@@ -329,6 +390,7 @@ class BetEngine:
                     w, state, full_data)
         trace.params = w
         trace.meta["host_transfers"] = ctx["transfers"]
+        trace.meta["race_overshoot"] = ctx["overshoot"]
         trace.meta["stages"] = ctx["stages"]
         return trace
 
@@ -361,20 +423,19 @@ class BetEngine:
                    k: int, *, eval_full: bool):
         """``k`` inner steps on ``win``; per-step records land in device
         buffers and come back in one pull."""
-        dev = w.device
+        dev = tree_leaves(w)[0].device
         bufs = {"f": torch.empty((k,), dtype=torch.float32, device=dev)}
         if eval_full:
             bufs["f_full"] = torch.empty((k,), dtype=torch.float32, device=dev)
         if ctx["probe"] is not None:
-            bufs["w"] = torch.empty((k,) + tuple(w.shape), dtype=w.dtype,
-                                    device=dev)
+            bufs["w"] = _param_buffer(w, k)
         for j in range(k):
             w, state, aux = optimizer.step(w, state, objective, win)
             bufs["f"][j] = aux["f"]
             if eval_full:
                 bufs["f_full"][j] = objective(w, full_data)
             if "w" in bufs:
-                bufs["w"][j] = w
+                _store(bufs["w"], j, w)
         return w, state, _pull(ctx, bufs)
 
     def _run_scan_stage(self, ctx, dataset, optimizer, objective, policy,
@@ -411,7 +472,7 @@ class BetEngine:
                 info=info, params=w, opt_state=state, clock=ctx["clock"],
                 dataset=ctx["dataset"], trace=ctx["trace"],
                 step_count=ctx["step_count"], stages=ctx["stages"],
-                transfers=ctx["transfers"]))
+                transfers=ctx["transfers"], overshoot=ctx["overshoot"]))
 
     def _flush_stage(self, ctx, policy, info: StageInfo, rec: StageRecords):
         """Replay the §4.2 clock charges for the stage's inner steps and land
@@ -444,39 +505,57 @@ class BetEngine:
     def _race(self, ctx, optimizer, objective, policy, w, st_slow, st_fast,
               win_t, win_prev, full_data):
         """One race round: both tracks step from ``w`` until condition (3)
-        fires or ``max_stage_iters`` elapse.  Returns the slow track's
-        carries and the round's pulled histories."""
+        fires or ``max_stage_iters`` elapse, in chunks with one pull each
+        (module docstring).  Returns the slow track's carries at the
+        trigger and the round's pulled histories, cut at the trigger."""
         M = int(policy.max_stage_iters)
-        dev = w.device
+        dev = tree_leaves(w)[0].device
         hist = torch.empty((3, M), dtype=torch.float32, device=dev)
-        W = (torch.empty((M,) + tuple(w.shape), dtype=w.dtype, device=dev)
-             if ctx["probe"] is not None else None)
+        W = _param_buffer(w, M) if ctx["probe"] is not None else None
+        per_snap = tree_nbytes((w, st_slow))
+        cap = RACE_SNAPSHOT_BYTES // per_snap if per_snap else M
         w_slow = w_fast = w
-        s, done = 0, False
-        while not done and s < M:
-            w_slow, st_slow, aux = optimizer.step(w_slow, st_slow, objective,
-                                                  win_t)
-            w_fast, st_fast, _ = optimizer.step(w_fast, st_fast, objective,
-                                                win_prev)
-            f_fast = objective(w_fast, win_t)
-            hist[0, s] = (objective(w_slow, win_t)
-                          if policy.condition == "eval" else aux["f"])
-            hist[1, s] = f_fast
-            hist[2, s] = objective(w_slow, full_data)
+        host = np.empty((3, 0), dtype=np.float32)
+        host_W = []
+        s, trig = 0, None
+        while trig is None and s < M:
+            # chunk end: the next cumulative power of two, and no more
+            # snapshots than the budget holds (none are needed before s=2,
+            # nor after the chunk's last step, which is the live carry)
+            end = min(M, 2 if s < 2 else 1 << s.bit_length(),
+                      max(s + 1, 2) + cap)
+            start, snaps = s, {}
+            while s < end:
+                w_slow, st_slow, aux = optimizer.step(w_slow, st_slow,
+                                                      objective, win_t)
+                w_fast, st_fast, _ = optimizer.step(w_fast, st_fast,
+                                                    objective, win_prev)
+                hist[0, s] = (objective(w_slow, win_t)
+                              if policy.condition == "eval" else aux["f"])
+                hist[1, s] = objective(w_fast, win_t)
+                hist[2, s] = objective(w_slow, full_data)
+                if W is not None:
+                    _store(W, s, w_slow)
+                s += 1
+                if 2 <= s < end:
+                    snaps[s] = (w_slow, st_slow)
+            tensors = {"hist": hist[:, start:end]}
             if W is not None:
-                W[s] = w_slow
-            s += 1
-            if s >= 2:
-                # condition (3): slow at ⌊s/2⌋ already beats fast at s —
-                # read on the host, one transfer per race step
-                done = bool(hist[0, max(0, s // 2 - 1)] < f_fast)
-                ctx["transfers"] += 1
-        tensors = {"hist": hist[:, :s]}
+                tensors["W"] = tree_map(lambda b: b[start:end], W)
+            pulled = _pull(ctx, tensors)
+            host = np.concatenate([host, pulled["hist"]], axis=1)
+            if W is not None:
+                host_W.append(pulled["W"])
+            # condition (3), tested on the host over the chunk's steps
+            trig = _first_trigger(host[0], host[1], start + 1, end)
+            if trig is not None and trig < end:
+                w_slow, st_slow = snaps[trig]
+                ctx["overshoot"] += end - trig
+                s = trig
+        out = {"hist": host[:, :s], "triggered": trig is not None}
         if W is not None:
-            tensors["W"] = W[:s]
-        pulled = _pull(ctx, tensors)
-        pulled["triggered"] = done
-        return w_slow, st_slow, pulled
+            out["W"] = tree_map(lambda *c: np.concatenate(c)[:s], *host_W)
+        return w_slow, st_slow, out
 
     def _run_two_track(self, ctx, dataset, optimizer, objective,
                        policy: TwoTrack, w, state, full_data):

@@ -5,22 +5,40 @@ A tensor on the CPU goes to the kernel's plain PyTorch version
 or the call raises — there is no fallback from the card to the plain
 version.
 
+``ssm_scan`` is differentiable, as the reference's is: the kernel is the
+forward pass and the backward pass is the VJP of the plain version,
+recomputed from the saved inputs (``torch.autograd.Function``; the
+reference wraps its Pallas kernel in a ``custom_vjp`` the same way and
+has no backward kernel either).
+
 ``CALLS`` counts kernel launches per kernel (reset with ``reset_calls``):
 a run on the card proves with it that its main path went through the
-kernels.  Calls served by the plain version on the CPU are not counted.
+kernels.  Calls served by the plain version on the CPU are not counted,
+nor is the backward pass, which launches no kernel of this package.
 """
 from __future__ import annotations
 
 import collections
 
+import torch
+
 from . import linear_grad as _lg
 from . import ref as _ref
+from . import ssm_scan as _ss
 
 CALLS: collections.Counter = collections.Counter()
 
 
 def reset_calls() -> None:
     CALLS.clear()
+
+
+def _on_card(name: str, t: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+    kind = t.device.type
+    if kind not in ("cuda", "cpu"):
+        raise ValueError(f"{name} runs on 'cuda' or 'cpu', got {t.device}")
+    return kind == "cuda"
 
 
 def linear_forward(X, w):
@@ -31,12 +49,39 @@ def linear_forward(X, w):
 def linear_value_grad(X, y, w, *, loss: str = "squared_hinge"):
     """(Σ loss_i, Xᵀ(ℓ′⊙y)) for X (n, d), y (n,), w (d,) — the kernel on
     the card, the plain version on the CPU."""
-    kind = X.device.type
-    if kind == "cpu":
+    if not _on_card("linear_value_grad", X):
         return _ref.linear_value_grad(X, y, w, loss=loss)
-    if kind != "cuda":
-        raise ValueError(f"linear_value_grad runs on 'cuda' or 'cpu', "
-                         f"got {X.device}")
     out = _lg.linear_value_grad(X, y, w, loss=loss)
     CALLS["linear_value_grad"] += 1
     return out
+
+
+# --------------------------------------------------------------- ssm scan
+class _SSMScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, u, delta, B_ssm, C_ssm, A_log, D):
+        ctx.save_for_backward(u, delta, B_ssm, C_ssm, A_log, D)
+        if not _on_card("ssm_scan", u):
+            return _ref.ssm_scan(u, delta, B_ssm, C_ssm, A_log, D)
+        y = _ss.ssm_scan(*(t.contiguous()
+                           for t in (u, delta, B_ssm, C_ssm, A_log, D)))
+        CALLS["ssm_scan"] += 1
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        need = ctx.needs_input_grad
+        inputs = [t.detach().requires_grad_(n)
+                  for t, n in zip(ctx.saved_tensors, need)]
+        with torch.enable_grad():
+            y = _ref.ssm_scan(*inputs)
+        wanted = [t for t, n in zip(inputs, need) if n]
+        grads = iter(torch.autograd.grad(y, wanted, g))
+        return tuple(next(grads) if n else None for n in need)
+
+
+def ssm_scan(u, delta, B_ssm, C_ssm, A_log, D):
+    """Mamba selective scan y (B, S, di) for u, delta (B, S, di), B_ssm,
+    C_ssm (B, S, N), A_log (di, N), D (di,) — the kernel on the card, the
+    plain version on the CPU; differentiable in all six."""
+    return _SSMScan.apply(u, delta, B_ssm, C_ssm, A_log, D)

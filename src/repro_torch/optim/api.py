@@ -26,6 +26,26 @@ import torch
 Objective = Any          # models.linear.LinearObjective
 
 
+# ------------------------------------------------------------- tree helpers
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts, lists and tuples (the
+    reference's ``jax.tree_util.tree_map``); ``rest`` are trees of the same
+    structure whose leaves are passed alongside."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
 # ------------------------------------------------ tree math (on one tensor)
 def tree_dot(a, b):
     return torch.sum(a * b)

@@ -35,6 +35,18 @@ def _spec(policy, params, *, scale=0.05, optimizer="newton_cg"):
         schedule=R.ScheduleSpec(n0=32, clock={"p": 10.0, "a": 1.0, "s": 5.0}))
 
 
+def _chunk_end(s):
+    """The cumulative race chunk boundary (2, 4, 8, ...) that step s is in."""
+    end = 2
+    while end < s:
+        end *= 2
+    return end
+
+
+def _race_chunks(s):
+    return _chunk_end(s).bit_length() - 1
+
+
 def _both(spec):
     ref = R.build(spec).run()
     port = P.build(P.RunSpec.from_json(spec.to_json()), device="cpu").run()
@@ -83,19 +95,28 @@ def test_two_track_trigger_steps_match_reference():
     np.testing.assert_allclose([p.extra["f_fast_on_t"] for p in racing],
                                [p.extra["f_fast_on_t"] for p in ref_racing],
                                rtol=RTOL_F)
-    # the race reads condition (3) once per step from the second on, plus
-    # one pull of the stage's histories: s transfers for s race steps
-    race_steps = len(racing)
+    # the race pulls once per chunk, at cumulative sizes 2, 4, 8, ...: a
+    # racing stage of s steps costs max(1, ceil(log2 s)) transfers; the
+    # final phase's one chunk costs one more
     n_race_stages = port.meta["stages"] - 1
-    assert port.meta["host_transfers"] == race_steps + 1
-    assert n_race_stages == ref.meta["stages"] - 1
+    per_stage = [c for s, c in steps_per_stage(port).items()
+                 if any(p.stage == s and "f_fast_on_t" in p.extra
+                        for p in racing)]
+    assert len(per_stage) == n_race_stages == ref.meta["stages"] - 1
+    assert port.meta["host_transfers"] == \
+        sum(_race_chunks(s) for s in per_stage) + 1
+    # every stage triggered (far below max_stage_iters): the steps past the
+    # trigger are the rest of its chunk
+    assert port.meta["race_overshoot"] == \
+        sum(_chunk_end(s) - s for s in per_stage)
 
 
 def test_every_optimizer_step_calls_the_kernel_wrapper_once(monkeypatch):
     """On the card, ``ops.CALLS`` counts kernel launches; on the CPU the
     same wrapper serves the plain version, so count its calls here: two
-    per race step, one per final-phase and batch step — the equality
-    chip_smoke.py asserts on the card."""
+    per race step (those run past a trigger and rolled back included),
+    one per final-phase and batch step — the equality chip_smoke.py
+    asserts on the card."""
     calls = []
     real = tops.linear_value_grad
 
@@ -109,9 +130,51 @@ def test_every_optimizer_step_calls_the_kernel_wrapper_once(monkeypatch):
               for pol in (("two_track", {"final_steps": 6}),
                           ("batch", {"steps": 5}))]
     implied = sum(2 if "f_fast_on_t" in p.extra else 1
-                  for tr in traces for p in tr.points)
+                  for tr in traces for p in tr.points) \
+        + sum(2 * tr.meta["race_overshoot"] for tr in traces)
     assert len(calls) == implied
     assert tops.CALLS["linear_value_grad"] == 0      # the CPU launches nothing
+
+
+@pytest.mark.parametrize("optimizer,overshoot", [("newton_cg", 2), ("gd", 14)])
+def test_race_overshoot_rolls_back_to_the_trigger(optimizer, overshoot,
+                                                  monkeypatch):
+    """susy_like triggers mid-chunk (after 6 race steps with Newton-CG, 18
+    with GD): the chunked race runs on to the chunk's end, then rolls the
+    slow track back.  Everything it returns is bitwise that of a race in
+    chunks of one step (room for no snapshot)."""
+    spec = P.RunSpec.from_json(_spec("two_track", {"final_steps": 2},
+                                     optimizer=optimizer).to_json())
+    spec = spec.replace(data=spec.data.replace(dataset="susy_like"))
+    runs = []
+    for single in (False, True):
+        if single:
+            monkeypatch.setattr(tengine, "RACE_SNAPSHOT_BYTES", 0)
+        sess = P.build(spec, device="cpu")
+        carries, record = [], sess.engine.stage_callback
+        sess.engine.stage_callback = lambda end, record=record, \
+            carries=carries: (carries.append((end.params, end.opt_state)),
+                              record(end))
+        runs.append((sess.run(), carries))
+    (chunked, c_carries), (single, s_carries) = runs
+    assert chunked.meta["race_overshoot"] == overshoot
+    assert single.meta["race_overshoot"] == 0
+    for col in COLUMNS + ("f_window", "f_full"):
+        assert chunked.column(col) == single.column(col), col
+    assert [p.extra for p in chunked.points] == [p.extra for p in single.points]
+    assert torch.equal(chunked.params, single.params)
+    assert len(c_carries) == len(s_carries) == chunked.meta["stages"]
+    for (wc, sc), (ws, ss) in zip(c_carries, s_carries):
+        assert torch.equal(wc, ws)
+        assert sc.keys() == ss.keys()
+        for k in sc:
+            assert torch.equal(torch.as_tensor(sc[k]), torch.as_tensor(ss[k]))
+    # one step per chunk after the first two: s - 1 reads for s race steps
+    stages = chunked.column("stage")
+    race = [stages.count(s) for s in sorted(set(stages))][:-1]
+    assert single.meta["host_transfers"] == sum(s - 1 for s in race) + 1
+    assert chunked.meta["host_transfers"] == \
+        sum(_race_chunks(s) for s in race) + 1
 
 
 def test_probe_and_progress_hooks():

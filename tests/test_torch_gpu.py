@@ -1,6 +1,7 @@
-"""Tests of the port that need a CUDA card: the hand-written kernel
-against its float64 plain version, and the main path on the card against
-the CPU.  They skip (deciding inside each test) where there is no card.
+"""Tests of the port that need a CUDA card: the hand-written kernels
+against their float64 plain versions, the scan's autograd on the card,
+and the main paths on the card against the CPU.  They skip (deciding
+inside each test) where there is no card.
 
 This file imports neither JAX nor the reference, so it runs on a machine
 that has only PyTorch:
@@ -12,7 +13,7 @@ import pytest
 import torch
 
 import repro_torch.api as P
-from repro_torch.kernels import linear_grad, ops, ref
+from repro_torch.kernels import linear_grad, ops, ref, ssm_scan
 
 pytestmark = pytest.mark.gpu
 
@@ -90,5 +91,102 @@ def test_main_path_on_card_matches_cpu():
     for col in ("step", "stage", "window", "time", "accesses"):
         assert gpu.column(col) == cpu.column(col), col
     # the bound chip_smoke.py states for the card-vs-CPU main path
+    np.testing.assert_allclose(gpu.column("f_full"), cpu.column("f_full"),
+                               rtol=1e-4)
+
+
+# ---------------------------------------------------------- ssm scan (B3)
+def _scan_inputs(B, S, di, N, seed, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    u = rng.standard_normal((B, S, di)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, di)))).astype(np.float32)
+    Bs = rng.standard_normal((B, S, N)).astype(np.float32)
+    Cs = rng.standard_normal((B, S, N)).astype(np.float32)
+    Al = np.log(np.tile(np.arange(1, N + 1, dtype=np.float32)[None], (di, 1)))
+    D = rng.standard_normal(di).astype(np.float32)
+    t = [torch.from_numpy(a).cuda() for a in (u, dt, Bs, Cs, Al, D)]
+    return [x.to(dtype) for x in t[:4]] + t[4:]
+
+
+# float32 against the float64 plain version: the float32 carry and the
+# SFU's exp2 (2 ulp) over S steps of a contracting recurrence, 1e-4
+# relative to max(1, |y|); bfloat16: y itself is rounded to bfloat16
+# (half an ulp, 2^-9), 1e-2 relative.  chip_smoke.py states the same.
+SCAN_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.parametrize("B,S,di,N", [(1, 32, 64, 4), (2, 64, 128, 16),
+                                      (1, 100, 96, 8), (3, 37, 200, 16),
+                                      (2, 256, 8192, 16), (1, 5, 1, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssm_scan_kernel_matches_float64_plain_version(B, S, di, N, dtype):
+    _need_card()
+    args = _scan_inputs(B, S, di, N, seed=B + S + di + N, dtype=dtype)
+    ops.reset_calls()
+    y = ops.ssm_scan(*args)
+    torch.cuda.synchronize()
+    assert ops.CALLS["ssm_scan"] == 1
+    assert y.dtype == dtype and y.shape == (B, S, di)
+    y64 = ref.ssm_scan(*(a.double() for a in args))
+    err = (y.double() - y64).abs()
+    assert bool(torch.isfinite(y).all())
+    assert float((err / (1.0 + y64.abs())).max()) <= SCAN_TOL[dtype]
+    assert torch.equal(y, ops.ssm_scan(*args))           # deterministic
+
+
+def test_ssm_scan_grad_on_card_matches_plain_autograd():
+    _need_card()
+    args = _scan_inputs(2, 48, 96, 8, seed=5)
+    a = [x.clone().requires_grad_(True) for x in args]
+    b = [x.clone().requires_grad_(True) for x in args]
+    g = torch.randn((2, 48, 96), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(0))
+    ops.ssm_scan(*a).backward(g)
+    ref.ssm_scan(*b).backward(g)
+    for x, y in zip(a, b):
+        # the same plain VJP, from the kernel's saved inputs
+        assert torch.equal(x.grad, y.grad)
+
+
+def test_ssm_scan_refuses_what_it_does_not_take():
+    _need_card()
+    args = _scan_inputs(1, 8, 32, 4, seed=0)
+    meta = [torch.empty_like(a, device="meta") for a in args]
+    with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
+        ops.ssm_scan(*meta)
+    with pytest.raises(ValueError, match="N <= 16"):
+        ssm_scan.ssm_scan(*_scan_inputs(1, 8, 32, 17, seed=0))
+    with pytest.raises(TypeError, match="float32"):
+        ssm_scan.ssm_scan(*[a.double() for a in args])
+    with pytest.raises(ValueError, match="contiguous"):
+        ssm_scan.ssm_scan(args[0].transpose(1, 2).contiguous()
+                          .transpose(1, 2), *args[1:])
+
+
+def test_lm_path_on_card_matches_cpu():
+    _need_card()
+    spec = P.RunSpec(
+        data=P.DataSpec(kind="lm", corpus_size=32, seq_len=32, eval_rows=8),
+        model=P.ModelSpec(arch="falcon-mamba-7b", reduced=True,
+                          overrides={"dtype": "float32"}),
+        optimizer=P.OptimizerSpec("adamw_lm", {"lr": 1e-3,
+                                               "batch_size": 4}),
+        policy=P.PolicySpec("fixed_steps", {"inner_steps": 3,
+                                            "final_steps": 3}),
+        schedule=P.ScheduleSpec(n0=16, step_cost="batch",
+                                wait_on_expand=True, carry_state=True))
+    cpu_sess = P.build(spec, device="cpu")
+    gpu_sess = P.build(spec, device="cuda")
+    gpu_sess.w0 = {k: (v.cuda() if torch.is_tensor(v) else
+                       {n: t.cuda() for n, t in v.items()})
+                   for k, v in cpu_sess.w0.items()}
+    ops.reset_calls()
+    gpu = gpu_sess.run()
+    layers = gpu_sess.model_config.num_layers
+    assert ops.CALLS["ssm_scan"] == layers * 2 * len(gpu.points)
+    cpu = cpu_sess.run()
+    for col in ("step", "stage", "window", "time", "accesses"):
+        assert gpu.column(col) == cpu.column(col), col
+    # the bound chip_smoke.py states for the LM card-vs-CPU check
     np.testing.assert_allclose(gpu.column("f_full"), cpu.column("f_full"),
                                rtol=1e-4)

@@ -49,8 +49,12 @@ def test_build_accepts_a_dict_and_memoizes_the_problem():
     assert a.dataset is b.dataset and a.objective is b.objective
 
 
+LM = dict(data=R.DataSpec(kind="lm"),
+          optimizer=R.OptimizerSpec("adamw_lm", {"batch_size": 4}))
+
+
 @pytest.mark.parametrize("change,needle", [
-    (dict(data=R.DataSpec(kind="lm")), "LM slice"),
+    (dict(LM, model=R.ModelSpec(arch="recurrentgemma-9b")), "rglru slice"),
     (dict(data=R.DataSpec(plane="plane")), "data-plane slice"),
     (dict(topology=R.TopologySpec(hosts=2)), "distributed slice"),
     (dict(data=R.DataSpec(tiering=R.TieringSpec(enabled=True, hbm_bytes=1))),
@@ -60,7 +64,8 @@ def test_build_accepts_a_dict_and_memoizes_the_problem():
     (dict(obs=R.ObsSpec(enabled=True)), "observability slice"),
     (dict(serve=R.ServeSpec(enabled=True)), "serve slice"),
     (dict(optimizer=R.OptimizerSpec("lbfgs")), "remaining optimizers"),
-    (dict(optimizer=R.OptimizerSpec("adamw_lm")), "LM slice"),
+    (dict(LM, data=R.DataSpec(kind="lm", plane="plane"),
+          model=R.ModelSpec(arch="falcon-mamba-7b")), "data-plane slice"),
     (dict(policy=R.PolicySpec("gradient_variance")), "GradientVariance"),
     (dict(policy=R.PolicySpec("traffic_driven")), "serve slice"),
 ], ids=["lm", "plane", "hosts", "tiering", "elastic", "checkpoint", "obs",
@@ -78,7 +83,8 @@ def test_unported_branches_raise_spec_error(change, needle):
     (dict(data=R.DataSpec(dataset="mnist")), "unknown convex dataset"),
     (dict(schedule=R.ScheduleSpec(step_cost="batch")), "batch_size"),
     (dict(data=R.DataSpec(tiering=R.TieringSpec(hbm_bytes=8))), "enabled=False"),
-], ids=["typo", "bad_param", "dataset", "step_cost", "budget"])
+    (dict(optimizer=R.OptimizerSpec("adamw_lm")), "LM train step"),
+], ids=["typo", "bad_param", "dataset", "step_cost", "budget", "adamw_lm"])
 def test_reference_validation_kept(bad, needle):
     with pytest.raises(P.SpecError, match=needle):
         P.build(P.RunSpec(**{**BASE, **bad}), device="cpu")
