@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one card and check it.
+"""Drive the PyTorch/CUDA port's main paths on one card and check them.
 
     python3 chip_smoke.py
 
@@ -15,8 +15,9 @@ the script with a non-zero exit and no result line:
     CUDA events (the card's time, and the time per call with the host's
     share) beside its bound, its plain version and a library yardstick
     where one PyTorch call computes the same function.  One JSON line per
-    shape.  B1 (linear_value_grad), then B3 (ssm_scan), whose plain
-    version is timed as a CUDA graph replay (graph_ms).
+    shape.  B1 (linear_value_grad), B3 (ssm_scan), B4 (rglru_scan) — the
+    scans' plain versions timed as CUDA graph replays (graph_ms) — and B2
+    (flash_attention).
  3. main paths — ``repro_torch.api.build(spec, device="cuda").run()``,
     each path with the launch counts zeroed just before it and read just
     after:
@@ -26,17 +27,26 @@ the script with a non-zero exit and no result line:
     b. LM: falcon-mamba-7b at its full published width, depth cut to 4
        layers, two-track (launch/train.py's spec); ssm_scan launches
        num_layers times per forward pass the trace and the race
-       overshoot imply; f̂ on the eval probe falls; one line per stage.
- 4. card against CPU — the convex workload, and the reduced LM in
-    float32, under fixed_steps on the card and on the CPU (plain
-    versions): clock and access columns equal, f̂ within rtol 1e-4.
+       overshoot imply; at most ⌈log₂ s⌉ host transfers per racing stage
+       of s steps; f̂ on the eval probe falls; one line per stage;
+    c. hybrid LM: recurrentgemma-9b at its full published width, depth
+       cut to one (rec, rec, attn) super-block, under fixed_steps
+       (launch/train.py's default schedule) on sequences of 4,096 tokens,
+       longer than its 2,048 local window; rglru_scan launches twice and
+       flash_attention once per forward pass the trace implies; f̂ falls;
+       one line per stage, the peak memory, a train step taken apart.
+ 4. card against CPU — the convex workload, and the reduced LMs (mamba
+    and hybrid) in float32, under fixed_steps on the card and on the CPU
+    (plain versions): clock and access columns equal, f̂ within rtol 1e-4.
 
 Then the ``{"kernels": [...]}`` line, and last ``{"ok": true, ...}``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -44,10 +54,11 @@ from pathlib import Path
 
 import numpy as np
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and
-# float32 outside the tensor cores
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, float32
+# outside the tensor cores, dense bfloat16 on the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS_S = 67e12
+PEAK_BF16_FLOPS_S = 989e12
 
 # Kernel check tolerance against the float64 plain version.  The kernel
 # accumulates in float32: per-lane partials over a warp's rows, a fixed
@@ -98,6 +109,46 @@ SCAN_SHAPES = [
     ("falcon-mamba-7b", LM_BATCH, LM_SEQ, 8192, 16),
     ("ragged", 3, 77, 8192 + 40, 16),
     ("small", 1, 32, 64, 4),
+]
+
+# the hybrid main path (launch/train.py's default schedule, fixed_steps):
+# recurrentgemma-9b at full width, one (rec, rec, attn) super-block of its
+# 38 layers; sequences of 4,096 tokens exceed the 2,048 local window
+HY_LAYERS = 3
+HY_BATCH, HY_SEQ = 2, 4096
+HY_CORPUS, HY_EVAL_ROWS, HY_N0 = 512, 16, 64
+HY_INNER, HY_FINAL = 8, 8
+HY_WIDTH, HY_HEADS, HY_KV, HY_HD, HY_WINDOW = 4096, 16, 1, 256, 2048
+# B4 against its float64 plain version, elementwise relative to 1 + |y|:
+# float32 carries h in float32 through a contracting recurrence (one
+# rounding a step, damped), 1e-5; bfloat16 rounds each y to bfloat16,
+# 5e-2 (the reference's own bounds, tests/test_kernels.py)
+RGLRU_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
+# B4 shapes (label, B, S, W, dtypes); the first is what the hybrid path's
+# train step gives it, the second its f̂ probe
+RGLRU_SHAPES = [
+    ("recurrentgemma-9b", HY_BATCH, HY_SEQ, HY_WIDTH,
+     ("bfloat16", "float32")),
+    ("probe", HY_EVAL_ROWS, HY_SEQ, HY_WIDTH, ("bfloat16",)),
+    ("ragged", 3, 77, HY_WIDTH + 40, ("bfloat16", "float32")),
+]
+# B2 against its float64 plain version, elementwise relative to 1 + |o|:
+# float32 accumulates in float32 over at most S keys, 1e-4; bfloat16
+# rounds o to bfloat16, 2e-2 (the reference's own bounds)
+ATTN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# B2 shapes (label, B, S, H, KV, hd, window, dtype); the first is the
+# hybrid path's train step, the second its f̂ probe (whose plain version
+# and library call would hold ~70 GB of S x S scores, so only the kernel
+# is timed there)
+ATTN_SHAPES = [
+    ("recurrentgemma-9b", HY_BATCH, HY_SEQ, HY_HEADS, HY_KV, HY_HD,
+     HY_WINDOW, "bfloat16"),
+    ("probe", HY_EVAL_ROWS, HY_SEQ, HY_HEADS, HY_KV, HY_HD, HY_WINDOW,
+     "bfloat16"),
+    ("ragged", 1, 1000, HY_HEADS, HY_KV, HY_HD, 300, "bfloat16"),
+    ("ragged_f32", 1, 1000, HY_HEADS, HY_KV, HY_HD, 300, "float32"),
+    ("f32_hd64_w48", 2, 512, 8, 2, 64, 48, "float32"),
+    ("gqa16_f32", 1, 384, 16, 1, 128, 0, "float32"),
 ]
 
 
@@ -327,6 +378,155 @@ def scan_kernel_phase(torch, rt) -> dict:
     return main
 
 
+def rglru_bounds_ms(B: int, S: int, W: int, elt: int) -> dict:
+    """Least time for rglru_scan's work: read a, b once and write y once;
+    one FMA (2 float32 operations) per element."""
+    bytes_ = 3 * elt * B * S * W
+    b_ms = bytes_ / PEAK_BYTES_S * 1e3
+    f_ms = 2 * B * S * W / PEAK_F32_FLOPS_S * 1e3
+    return {"bound_ms": max(b_ms, f_ms), "bytes_bound_ms": b_ms,
+            "flops_bound_ms": f_ms,
+            "bound_by": "bytes" if b_ms >= f_ms else "operations"}
+
+
+def rglru_inputs(torch, gen, B, S, W, dtype):
+    """The reference test's distributions: a = sigmoid(normal) in (0, 1),
+    b standard normal."""
+    a = torch.sigmoid(torch.randn((B, S, W), generator=gen, device="cuda"))
+    b = torch.randn((B, S, W), generator=gen, device="cuda")
+    return a.to(dtype), b.to(dtype)
+
+
+def rglru_kernel_phase(torch, rt) -> dict:
+    ops, ref = rt["ops"], rt["ref"]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    spin_rate = spin_cycles_per_s(torch)
+    main = None
+    for label, B, S, W, dnames in RGLRU_SHAPES:
+        for dname in dnames:
+            a, b = rglru_inputs(torch, gen, B, S, W, getattr(torch, dname))
+            y = ops.rglru_scan(a, b)
+            torch.cuda.synchronize()
+            y64 = ref.rglru_scan(a.double(), b.double())
+            err = (y.double() - y64).abs()
+            max_abs = float(err.max())
+            rel = float((err / (1.0 + y64.abs())).max())
+            del y64, err
+            ok = bool(torch.isfinite(y).all()) and rel <= RGLRU_TOL[dname]
+            row = {"kernel": "rglru_scan", "shape": label, "B": B, "S": S,
+                   "W": W, "dtype": dname, "max_abs_err": max_abs,
+                   "max_rel_err": rel, "tol": RGLRU_TOL[dname],
+                   **rglru_bounds_ms(B, S, W, y.element_size()),
+                   "library_ms": None, "check": "pass" if ok else "FAIL"}
+            for k, t in (
+                    ("kernel", time_ms(torch, lambda: ops.rglru_scan(a, b),
+                                       spin_rate)),
+                    ("plain", graph_ms(torch,
+                                       lambda: ref.rglru_scan(a, b)))):
+                row[f"{k}_ms"], row[f"{k}_call_ms"] = t["ms"], t["call_ms"]
+            emit(row)
+            if not ok:
+                raise SystemExit(f"rglru_scan disagrees with its float64 "
+                                 f"plain version at {label}/{dname}: {rel}")
+            if label == RGLRU_SHAPES[0][0] and dname == "bfloat16":
+                main = row
+            del a, b, y
+    return main
+
+
+def attention_pairs(B: int, S: int, H: int, window: int) -> int:
+    """(query, key) pairs causal attention with ``window`` scores."""
+    per_head = sum(min(q + 1, window) if window else q + 1
+                   for q in range(S))
+    return B * H * per_head
+
+
+def attention_bounds_ms(B, S, H, KV, hd, window, dname) -> dict:
+    """Least time for flash_attention's work: read q, k, v once (k and v
+    unrepeated) and write o once; 4·hd operations per unmasked (query,
+    key) pair (QKᵀ and PV), at the peak of the inputs' type (the tensor
+    cores' for bfloat16, the CUDA cores' for float32)."""
+    elt = 2 if dname == "bfloat16" else 4
+    bytes_ = elt * (2 * B * S * H * hd + 2 * B * S * KV * hd)
+    flops = 4 * hd * attention_pairs(B, S, H, window)
+    peak = PEAK_BF16_FLOPS_S if dname == "bfloat16" else PEAK_F32_FLOPS_S
+    b_ms = bytes_ / PEAK_BYTES_S * 1e3
+    f_ms = flops / peak * 1e3
+    return {"bound_ms": max(b_ms, f_ms), "bytes_bound_ms": b_ms,
+            "flops_bound_ms": f_ms, "gflop": flops / 1e9,
+            "bound_by": "bytes" if b_ms >= f_ms else "operations"}
+
+
+def attention64(torch, ref, q, k, v, window):
+    """The plain version in float64, one batch row at a time (the S x S
+    scores of a whole probe batch would not fit)."""
+    return torch.cat([ref.gqa_attention(q[i:i + 1].double(),
+                                        k[i:i + 1].double(),
+                                        v[i:i + 1].double(), window=window)
+                      for i in range(q.shape[0])])
+
+
+def library_attention(torch, q, k, v, window):
+    """Yardstick the port never calls: PyTorch's fused attention with a
+    boolean causal-and-window mask, GQA by head groups."""
+    S = q.shape[1]
+    pos = torch.arange(S, device=q.device)
+    ok = pos[None, :] <= pos[:, None]
+    if window:
+        ok &= (pos[:, None] - pos[None, :]) < window
+    out = torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=ok, enable_gqa=True)
+    return out.transpose(1, 2)
+
+
+def attention_kernel_phase(torch, rt) -> dict:
+    ops, ref = rt["ops"], rt["ref"]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    spin_rate = spin_cycles_per_s(torch)
+    main = None
+    for label, B, S, H, KV, hd, window, dname in ATTN_SHAPES:
+        dtype = getattr(torch, dname)
+        q, k, v = (torch.randn((B, S, n, hd), generator=gen,
+                               device="cuda").to(dtype)
+                   for n in (H, KV, KV))
+        o = ops.flash_attention(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        o64 = attention64(torch, ref, q, k, v, window)
+        err = (o.double() - o64).abs()
+        max_abs = float(err.max())
+        rel = float((err / (1.0 + o64.abs())).max())
+        del o64, err
+        ok = bool(torch.isfinite(o).all()) and rel <= ATTN_TOL[dname]
+        row = {"kernel": "flash_attention", "shape": label, "B": B, "S": S,
+               "H": H, "KV": KV, "hd": hd, "window": window, "dtype": dname,
+               "max_abs_err": max_abs, "max_rel_err": rel,
+               "tol": ATTN_TOL[dname],
+               **attention_bounds_ms(B, S, H, KV, hd, window, dname),
+               "check": "pass" if ok else "FAIL"}
+        fns = {"kernel": lambda: ops.flash_attention(q, k, v, window=window)}
+        if label == "probe":
+            row["note"] = ("plain and library not timed: their S x S scores "
+                           "at this batch would hold ~70 GB")
+        else:
+            fns["plain"] = lambda: ref.gqa_attention(q, k, v, window=window)
+            fns["library"] = lambda: library_attention(torch, q, k, v,
+                                                       window)
+        for name in ("kernel", "plain", "library"):
+            t = (time_ms(torch, fns[name], spin_rate, iters=10)
+                 if name in fns else {"ms": None, "call_ms": None})
+            row[f"{name}_ms"], row[f"{name}_call_ms"] = t["ms"], t["call_ms"]
+        emit(row)
+        if not ok:
+            raise SystemExit(f"flash_attention disagrees with its float64 "
+                             f"plain version at {label}: {rel}")
+        if label == ATTN_SHAPES[0][0]:
+            main = row
+        del q, k, v, o
+        torch.cuda.empty_cache()
+    return main
+
+
 def quickstart_specs(api):
     data = api.DataSpec(dataset="w8a_like", scale=6.0, lam=1e-3)
     base = dict(data=data,
@@ -366,8 +566,8 @@ def main_path_phase(torch, rt) -> int:
         torch.cuda.synchronize()
         walls[name] = time.perf_counter() - t0
     launches = dict(ops.CALLS)
-    # two launches per race step (the steps run past a trigger and rolled
-    # back included), one per final-phase and batch step
+    # two launches per race step (the steps run past a trigger and
+    # discarded included), one per final-phase and batch step
     overshoot = sum(tr.meta["race_overshoot"] for tr in traces.values())
     implied = sum(2 if "f_fast_on_t" in p.extra else 1
                   for tr in traces.values() for p in tr.points) \
@@ -435,34 +635,76 @@ def card_vs_cpu_phase(torch, rt) -> None:
                          f"{RTOL_F}")
 
 
-def lm_spec(api, *, reduced: bool, policy, corpus: int, seq_len: int,
-            n0: int, max_stage_iters: int | None = None):
+def lm_spec(api, *, arch: str = "falcon-mamba-7b", reduced: bool, policy,
+            corpus: int, seq_len: int, n0: int,
+            max_stage_iters: int | None = None, layers: int = LM_LAYERS,
+            batch: int = LM_BATCH, eval_rows: int = 16,
+            fixed: tuple = (3, 3)):
     """launch/train.py's LM RunSpec (to_run_spec): the host-slice token
     path, adamw_lm, a batch-cost clock that waits on expansion and carries
     the Adam moments across stages."""
     if reduced:
-        model = api.ModelSpec(arch="falcon-mamba-7b", reduced=True,
+        model = api.ModelSpec(arch=arch, reduced=True,
                               overrides={"dtype": "float32"})
     else:
-        model = api.ModelSpec(arch="falcon-mamba-7b", reduced=False,
-                              overrides={"num_layers": LM_LAYERS})
+        model = api.ModelSpec(arch=arch, reduced=False,
+                              overrides={"num_layers": layers})
     if policy == "two_track":
         pol = api.PolicySpec("two_track", {
             "final_steps": 8, "max_stage_iters": max_stage_iters,
             "condition": "eval", "final_eval_full": True})
     else:
-        pol = api.PolicySpec("fixed_steps", {"inner_steps": 3,
-                                             "final_steps": 3})
+        pol = api.PolicySpec("fixed_steps", {"inner_steps": fixed[0],
+                                             "final_steps": fixed[1]})
     return api.RunSpec(
         name=f"lm_{policy}",
         data=api.DataSpec(kind="lm", corpus_size=corpus, seq_len=seq_len,
-                          eval_rows=16, plane="host"),
+                          eval_rows=eval_rows, plane="host"),
         model=model, policy=pol,
         optimizer=api.OptimizerSpec("adamw_lm", {"lr": 3e-4,
-                                                 "batch_size": LM_BATCH}),
+                                                 "batch_size": batch}),
         schedule=api.ScheduleSpec(n0=n0, step_cost="batch",
                                   wait_on_expand=True, carry_state=True,
                                   clock={"preloaded": n0}))
+
+
+def stage_lines(sess, tr, stamps, f0, t0, path: str) -> list:
+    """One line per stage of a finished LM run (``stamps``: the host clock
+    at each stage's end, after a synchronize); returns the lines."""
+    rows = []
+    prev = {"step_count": 0, "transfers": 0, "overshoot": 0}
+    f_before, t_prev = f0, t0
+    for end, stamp in zip(sess.stage_ends, stamps):
+        pts = [p for p in tr.points if p.stage == end["stage"]]
+        stage_s = stamp - t_prev
+        row = {"path": path, "stage": end["stage"], "window": end["n_t"],
+               "racing": "f_fast_on_t" in pts[0].extra, "steps": len(pts),
+               "host_transfers": end["transfers"] - prev["transfers"],
+               "race_overshoot": end["overshoot"] - prev["overshoot"],
+               "wall_s": stage_s, "wall_s_per_step": stage_s / len(pts),
+               "f_full_before": f_before, "f_full_after": pts[-1].f_full,
+               "f_window_last": pts[-1].f_window}
+        emit(row)
+        rows.append(row)
+        prev, f_before, t_prev = end, pts[-1].f_full, stamp
+    return rows
+
+
+def timed_run(torch, sess):
+    """Run ``sess`` with its stage ends stamped on the host clock after a
+    synchronize; returns (trace, stamps, t0, wall seconds)."""
+    stamps, record = [], sess.engine.stage_callback
+
+    def timed(end):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        record(end)
+
+    sess.engine.stage_callback = timed
+    t0 = time.perf_counter()
+    tr = sess.run()
+    torch.cuda.synchronize()
+    return tr, stamps, t0, time.perf_counter() - t0
 
 
 def lm_main_path_phase(torch, rt) -> dict:
@@ -472,9 +714,7 @@ def lm_main_path_phase(torch, rt) -> dict:
     t0 = time.perf_counter()
     sess = api.build(spec, device="cuda")
     cfg = sess.model_config
-    n_params = sum(t.numel() for t in (sess.w0["embed"], sess.w0["lm_head"],
-                                       sess.w0["final_norm"],
-                                       *sess.w0["stack_ssm"].values()))
+    n_params = sum(t.numel() for t in rt["tree_leaves"](sess.w0))
     f0 = float(sess.objective(sess.w0, sess.eval_data))
     torch.cuda.synchronize()
     emit({"path": "lm", "arch": cfg.name, "layers": cfg.num_layers,
@@ -483,36 +723,13 @@ def lm_main_path_phase(torch, rt) -> dict:
           "vocab": cfg.vocab_size, "dtype": str(cfg.dtype),
           "params": n_params, "build_s": time.perf_counter() - t0,
           "f_full_w0": f0, "spec": spec.to_dict()})
-    stamps, record = [], sess.engine.stage_callback
-
-    def timed(end):
-        torch.cuda.synchronize()
-        stamps.append(time.perf_counter())
-        record(end)
-
-    sess.engine.stage_callback = timed
     torch.cuda.reset_peak_memory_stats()
     ops.reset_calls()
-    t0 = time.perf_counter()
-    tr = sess.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    tr, stamps, t0, wall = timed_run(torch, sess)
     launches = dict(ops.CALLS)
     peak = torch.cuda.max_memory_allocated()
     peak_reserved = torch.cuda.max_memory_reserved()
-    prev = {"step_count": 0, "transfers": 0, "overshoot": 0}
-    f_before, t_prev = f0, t0
-    for end, stamp in zip(sess.stage_ends, stamps):
-        pts = [p for p in tr.points if p.stage == end["stage"]]
-        stage_s = stamp - t_prev
-        emit({"path": "lm", "stage": end["stage"], "window": end["n_t"],
-              "racing": "f_fast_on_t" in pts[0].extra, "steps": len(pts),
-              "host_transfers": end["transfers"] - prev["transfers"],
-              "race_overshoot": end["overshoot"] - prev["overshoot"],
-              "wall_s": stage_s, "wall_s_per_step": stage_s / len(pts),
-              "f_full_before": f_before, "f_full_after": pts[-1].f_full,
-              "f_window_last": pts[-1].f_window})
-        prev, f_before, t_prev = end, pts[-1].f_full, stamp
+    rows = stage_lines(sess, tr, stamps, f0, t0, "lm")
     pol = sess.policy
     race = sum("f_fast_on_t" in p.extra for p in tr.points)
     final = len(tr.points) - race
@@ -532,6 +749,7 @@ def lm_main_path_phase(torch, rt) -> dict:
                "race_steps": race, "final_steps": final,
                "race_overshoot": overshoot,
                "host_transfers": tr.meta["host_transfers"],
+               "transfers_per_stage": [r["host_transfers"] for r in rows],
                "train_steps": train_steps, "objective_evals": evals,
                "launches": launches, "implied_ssm_scan": implied,
                "wall_s": wall, "peak_memory_gb": peak / 1e9,
@@ -548,22 +766,31 @@ def lm_main_path_phase(torch, rt) -> dict:
     if launches.get("ssm_scan", 0) != implied:
         raise SystemExit(f"ssm_scan launched {launches.get('ssm_scan', 0)} "
                          f"times, the trace implies {implied}")
+    # the race pulls once per chunk (cumulative sizes 2, 4, 8, ...)
+    for r in rows:
+        if r["racing"] and r["host_transfers"] > \
+                math.ceil(math.log2(max(2, r["steps"]))):
+            raise SystemExit(f"racing stage {r['stage']} of {r['steps']} "
+                             f"steps took {r['host_transfers']} transfers")
     lm_step_breakdown(torch, rt, sess, tr.params)
     del sess, tr
+    gc.collect()
     torch.cuda.empty_cache()
     return summary
 
 
-def lm_step_breakdown(torch, rt, sess, params) -> None:
+def step_breakdown(torch, rt, sess, params, batch_size: int, path: str,
+                   parts: dict) -> dict:
     """Where a train step's time goes: host-clock segments, each ended by
     a synchronize, of one step taken apart (forward with the graph, the
-    backward, the AdamW update), one f̂ probe, and the scan's own share of
-    the backward (the kernel forward and the plain version's VJP at the
-    LM shape, once per layer).  Taken after the main path's counts were
+    backward, the AdamW update), one f̂ probe, and each kernel's own share
+    of the backward: ``parts`` maps a name to (inputs, kernel call, calls
+    per step), and the kernel forward and the plain version's VJP are
+    timed at the path's shape.  Taken after the main path's counts were
     read; the launches here are not counted there."""
     T, adam, tree_map = rt["transformer"], rt["adam"], rt["tree_map"]
     cfg = sess.model_config
-    rows = sess.dataset.window(LM_BATCH)
+    rows = sess.dataset.window(batch_size)
     batch = {"tokens": rows[:, :-1], "labels": rows[:, 1:]}
     opt_state = adam.adamw_init(params)
     seg = {}
@@ -587,28 +814,130 @@ def lm_step_breakdown(torch, rt, sess, params) -> None:
                          lambda: torch.autograd.grad(loss, leaves))
         it = iter(flat)
         grads = tree_map(lambda _: next(it), p)
+        del p, loss, flat
         timed("adamw_s", lambda: adam.adamw_update(
             params, grads, opt_state, lr=3e-4, weight_decay=0.1))
+        del grads
         timed("probe_s", lambda: sess.objective(params, sess.eval_data))
-        del p, loss, flat, grads
-        gen = torch.Generator(device="cuda").manual_seed(2)
-        args = scan_inputs(torch, gen, LM_BATCH, LM_SEQ, cfg.d_inner,
-                           cfg.ssm_state, cfg.dtype)
-        args = [a.requires_grad_(True) for a in args]
-        y = timed("scan_forward_s", lambda: rt["ops"].ssm_scan(*args))
-        timed("scan_vjp_s", lambda: y.backward(torch.ones_like(y)))
-        del args, y
-    emit({"path": "lm", "breakdown": "one train step", **seg,
-          "layers": cfg.num_layers,
-          "scan_vjp_all_layers_s": seg["scan_vjp_s"] * cfg.num_layers})
+        for name, (inputs, call, _) in parts.items():
+            args = [a.requires_grad_(True) for a in inputs()]
+            y = timed(f"{name}_forward_s", lambda: call(*args))
+            timed(f"{name}_vjp_s", lambda: y.backward(torch.ones_like(y)))
+            del args, y
+    out = {"path": path, "breakdown": "one train step", **seg,
+           "layers": cfg.num_layers}
+    for name, (_, _, count) in parts.items():
+        out[f"{name}_calls_per_step"] = count
+        out[f"{name}_vjp_all_layers_s"] = seg[f"{name}_vjp_s"] * count
+        out[f"{name}_vjp_share_of_backward"] = \
+            seg[f"{name}_vjp_s"] * count / seg["backward_s"]
+    emit(out)
+    return out
 
 
-def lm_card_vs_cpu_phase(torch, rt) -> None:
+def lm_step_breakdown(torch, rt, sess, params) -> None:
+    cfg = sess.model_config
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    parts = {"scan": (lambda: scan_inputs(torch, gen, LM_BATCH, LM_SEQ,
+                                          cfg.d_inner, cfg.ssm_state,
+                                          cfg.dtype),
+                      rt["ops"].ssm_scan, cfg.num_layers)}
+    step_breakdown(torch, rt, sess, params, LM_BATCH, "lm", parts)
+
+
+def hybrid_main_path_phase(torch, rt) -> dict:
+    """recurrentgemma-9b at full width, one super-block, fixed_steps."""
+    api, ops = rt["api"], rt["ops"]
+    spec = lm_spec(api, arch="recurrentgemma-9b", reduced=False,
+                   policy="fixed_steps", corpus=HY_CORPUS, seq_len=HY_SEQ,
+                   n0=HY_N0, layers=HY_LAYERS, batch=HY_BATCH,
+                   eval_rows=HY_EVAL_ROWS, fixed=(HY_INNER, HY_FINAL))
+    t0 = time.perf_counter()
+    sess = api.build(spec, device="cuda")
+    cfg = sess.model_config
+    n_params = sum(t.numel() for t in rt["tree_leaves"](sess.w0))
+    f0 = float(sess.objective(sess.w0, sess.eval_data))
+    torch.cuda.synchronize()
+    emit({"path": "hybrid", "arch": cfg.name, "layers": cfg.num_layers,
+          "layer_types": list(cfg.layer_types()), "d_model": cfg.d_model,
+          "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+          "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+          "lru_width": cfg.lru_width, "local_window": cfg.local_window,
+          "vocab": cfg.vocab_size, "dtype": str(cfg.dtype),
+          "params": n_params, "build_s": time.perf_counter() - t0,
+          "f_full_w0": f0, "spec": spec.to_dict()})
+    if not HY_SEQ > cfg.local_window:
+        raise SystemExit("the hybrid path's sequences must exceed the window")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_calls()
+    tr, stamps, t0, wall = timed_run(torch, sess)
+    launches = dict(ops.CALLS)
+    peak = torch.cuda.max_memory_allocated()
+    peak_reserved = torch.cuda.max_memory_reserved()
+    rows = stage_lines(sess, tr, stamps, f0, t0, "hybrid")
+    # fixed_steps: a train step and an f̂ probe (eval_full) per step
+    passes = 2 * len(tr.points)
+    types = cfg.layer_types()
+    implied = {"rglru_scan": types.count("rec") * passes,
+               "flash_attention": types.count("attn") * passes}
+    values = tr.column("f_window") + tr.column("f_full")
+    summary = {"path": "hybrid", "stages": tr.meta["stages"],
+               "steps": len(tr.points), "forward_passes": passes,
+               "host_transfers": tr.meta["host_transfers"],
+               "transfers_per_stage": [r["host_transfers"] for r in rows],
+               "launches": launches, "implied": implied, "wall_s": wall,
+               "wall_s_per_step": wall / len(tr.points),
+               "peak_memory_gb": peak / 1e9,
+               "peak_reserved_gb": peak_reserved / 1e9,
+               "card_memory_gb": torch.cuda.get_device_properties(0)
+               .total_memory / 1e9,
+               "f_full_w0": f0, "f_full_first_stage": rows[0]["f_full_after"],
+               "f_full_final": tr.final().f_full,
+               "sim_time": sess.clock.time,
+               "data_accesses": sess.clock.data_accesses}
+    emit(summary)
+    if not all(math.isfinite(v) for v in values):
+        raise SystemExit("hybrid: non-finite loss in the trace")
+    if not tr.final().f_full < rows[0]["f_full_after"]:
+        raise SystemExit(f"hybrid: f̂ on the eval probe did not fall from "
+                         f"the first stage to the last "
+                         f"({rows[0]['f_full_after']} -> "
+                         f"{tr.final().f_full})")
+    for name, n in implied.items():
+        if launches.get(name, 0) != n:
+            raise SystemExit(f"{name} launched {launches.get(name, 0)} "
+                             f"times, the trace implies {n}")
+    params = tr.params
+    sess.w0 = None                      # the breakdown needs the room
+    del tr
+    gc.collect()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    parts = {
+        "rglru": (lambda: rglru_inputs(torch, gen, HY_BATCH, HY_SEQ,
+                                       cfg.lru_width, cfg.dtype),
+                  ops.rglru_scan, types.count("rec")),
+        "attention": (lambda: [torch.randn(
+            (HY_BATCH, HY_SEQ, n, cfg.head_dim), generator=gen,
+            device="cuda").to(cfg.dtype)
+            for n in (cfg.num_heads, cfg.num_kv_heads, cfg.num_kv_heads)],
+            lambda q, k, v: ops.flash_attention(q, k, v,
+                                                window=cfg.local_window),
+            types.count("attn")),
+    }
+    summary["breakdown"] = step_breakdown(torch, rt, sess, params, HY_BATCH,
+                                          "hybrid", parts)
+    del sess, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary
+
+
+def lm_card_vs_cpu_phase(torch, rt, arch: str) -> None:
     """The reduced LM in float32 under fixed_steps, on the card and on the
     CPU from the same parameters (the CPU session's, carried across)."""
     api = rt["api"]
-    spec = lm_spec(api, reduced=True, policy="fixed_steps", corpus=32,
-                   seq_len=32, n0=16)
+    spec = lm_spec(api, arch=arch, reduced=True, policy="fixed_steps",
+                   corpus=32, seq_len=32, n0=16)
     cpu_sess = api.build(spec, device="cpu")
     gpu_sess = api.build(spec, device="cuda")
     gpu_sess.w0 = rt["tree_map"](lambda t: t.cuda(), cpu_sess.w0)
@@ -622,20 +951,24 @@ def lm_card_vs_cpu_phase(torch, rt) -> None:
     gpu, cpu = out["cuda"], out["cpu"]
     for col in ("step", "stage", "window", "time", "accesses"):
         if gpu.column(col) != cpu.column(col):
-            raise SystemExit(f"LM fixed_steps card/CPU column {col!r} "
-                             f"differs")
+            raise SystemExit(f"LM {arch} fixed_steps card/CPU column "
+                             f"{col!r} differs")
     rel = float(np.max(np.abs(np.array(gpu.column("f_full"))
                               - np.array(cpu.column("f_full")))
                        / np.abs(np.array(cpu.column("f_full")))))
-    emit({"card_vs_cpu": "lm_fixed_steps", "steps": len(gpu.points),
-          "columns_equal": True, "max_rel_f_full": rel, "rtol": RTOL_F,
+    emit({"card_vs_cpu": "lm_fixed_steps", "arch": arch,
+          "steps": len(gpu.points), "columns_equal": True,
+          "max_rel_f_full": rel, "rtol": RTOL_F,
           "cuda_wall_s": out["cuda_wall_s"], "cpu_wall_s": out["cpu_wall_s"]})
     if not rel <= RTOL_F:
-        raise SystemExit(f"LM fixed_steps f_full card/CPU rel diff {rel} > "
-                         f"{RTOL_F}")
+        raise SystemExit(f"LM {arch} fixed_steps f_full card/CPU rel diff "
+                         f"{rel} > {RTOL_F}")
 
 
 def main() -> None:
+    # the full-width runs hold most of the card: segments that grow in
+    # place keep the allocator's split blocks from stranding memory
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device "
@@ -676,12 +1009,16 @@ def main() -> None:
     # 2. kernels against their plain versions
     main_row = kernel_phase(torch, rt)
     scan_row = scan_kernel_phase(torch, rt)
+    rglru_row = rglru_kernel_phase(torch, rt)
+    attn_row = attention_kernel_phase(torch, rt)
     # 3. the main paths, each with its own launch counts
     launches = main_path_phase(torch, rt)
     lm = lm_main_path_phase(torch, rt)
+    hybrid = hybrid_main_path_phase(torch, rt)
     # 4. card against CPU
     card_vs_cpu_phase(torch, rt)
-    lm_card_vs_cpu_phase(torch, rt)
+    lm_card_vs_cpu_phase(torch, rt, "falcon-mamba-7b")
+    lm_card_vs_cpu_phase(torch, rt, "recurrentgemma-9b")
 
     emit({"kernels": [{
         "name": "linear_value_grad", "route": "cuda",
@@ -704,7 +1041,30 @@ def main() -> None:
         "sfu_bound_ms": scan_row["sfu_bound_ms"],
         "shape": [scan_row["B"], scan_row["S"], scan_row["di"],
                   scan_row["N"]], "dtype": scan_row["dtype"],
-        "check": scan_row["check"]}]})
+        "check": scan_row["check"]}, {
+        "name": "rglru_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan.py:38",
+        "launches": hybrid["launches"]["rglru_scan"],
+        "max_abs_err": rglru_row["max_abs_err"],
+        "ms": rglru_row["kernel_ms"], "plain_ms": rglru_row["plain_ms"],
+        "bound_ms": rglru_row["bound_ms"],
+        "bound_by": rglru_row["bound_by"], "library_ms": None,
+        "call_ms": rglru_row["kernel_call_ms"],
+        "shape": [rglru_row["B"], rglru_row["S"], rglru_row["W"]],
+        "dtype": rglru_row["dtype"], "check": rglru_row["check"]}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:77",
+        "launches": hybrid["launches"]["flash_attention"],
+        "max_abs_err": attn_row["max_abs_err"],
+        "ms": attn_row["kernel_ms"], "plain_ms": attn_row["plain_ms"],
+        "bound_ms": attn_row["bound_ms"], "bound_by": attn_row["bound_by"],
+        "library_ms": attn_row["library_ms"],
+        "call_ms": attn_row["kernel_call_ms"],
+        "shape": [attn_row[k] for k in ("B", "S", "H", "KV", "hd")],
+        "window": attn_row["window"], "dtype": attn_row["dtype"],
+        "check": attn_row["check"]}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -30,7 +30,6 @@ ALIASES = {
 # module -> config family of the architectures whose layer family is not
 # ported yet; ``workloads.families.PENDING`` names the slice that brings it
 PENDING = {
-    "recurrentgemma_9b": "hybrid",
     "granite_moe_1b_a400m": "moe",
     "llama4_scout_17b_a16e": "moe",
     "internlm2_1p8b": "dense",
@@ -61,14 +60,21 @@ def get(name: str) -> ModelConfig:
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
-    """The reference's ≤2-layer, d_model≤256 smoke variant, field for
-    field, for the families ``get`` returns (the ssm family)."""
+    """The reference's smoke variant (≤2 layers, 3 for the hybrid;
+    d_model≤256), field for field, for the families ``get`` returns (ssm
+    and hybrid)."""
     d = min(cfg.d_model, 256)
     heads = max(1, min(cfg.num_heads, 4))
-    return dataclasses.replace(
-        cfg, num_layers=min(cfg.num_layers, 2), d_model=d, num_heads=heads,
+    kw = dict(
+        num_layers=min(cfg.num_layers, 3 if cfg.family == "hybrid" else 2),
+        d_model=d, num_heads=heads,
         num_kv_heads=max(1, min(cfg.num_kv_heads, heads)), head_dim=64,
         d_ff=min(cfg.d_ff, 512) if cfg.d_ff else 0,
         vocab_size=min(cfg.vocab_size, 512) if cfg.vocab_size else 0,
-        moe_group_size=64, d_inner=2 * d, dt_rank=max(8, d // 16),
-        ssm_state=cfg.ssm_state)
+        moe_group_size=64)
+    if cfg.family == "ssm":
+        kw.update(d_inner=2 * d, dt_rank=max(8, d // 16),
+                  ssm_state=cfg.ssm_state)
+    if cfg.family == "hybrid":
+        kw.update(lru_width=d, local_window=min(cfg.local_window, 64))
+    return dataclasses.replace(cfg, **kw)

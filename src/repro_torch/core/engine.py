@@ -21,20 +21,25 @@ per chunk (``trace.meta["host_transfers"]`` counts the pulls), then replays
 the §4.2 clock charges.
 
 The Two-Track race runs in chunks whose cumulative sizes are 2, 4, 8, …:
-both tracks step through a chunk with no host read, the slow track's carry
-after each step stays referenced on the device as a snapshot, and one pull
-brings the chunk's histories to the host, which finds the first step that
-meets condition (3) and rolls the slow track back to its snapshot there.
-So a racing stage of s steps costs about ⌈log₂ s⌉ transfers.  The steps run
-past a trigger are counted in ``trace.meta["race_overshoot"]``; they never
-reach the trace or the clock.  A chunk keeps no more snapshots than
-``RACE_SNAPSHOT_BYTES`` holds: a carry too large for even one races in
-chunks of one step, which reads condition (3) once per step.
+both tracks step through a chunk with no host read, and one pull brings
+the chunk's histories to the host, which finds the first step that meets
+condition (3).  Inside a chunk the slow track freezes on the device once
+condition (3) holds: a device bool ``frozen`` is raised from the
+histories the step has just written, and every later step of the chunk
+keeps the slow carry's old leaves where it is raised
+(``torch.where(frozen, old, new)``, leaf by leaf).  So when the host finds
+the trigger, the live slow carry is already the trigger step's, and
+nothing is rolled back; the select needs one leaf of temporaries, never a
+second carry, so a carry of any size races in chunks.  Host-side leaves
+(a Python step counter) cannot be selected on the device: the host keeps
+their values per step and restores the trigger step's.  A racing stage of
+s steps costs about ⌈log₂ s⌉ transfers.  The steps run past a trigger are
+counted in ``trace.meta["race_overshoot"]``; they never reach the trace
+or the clock.
 
 Parameters and optimizer states may be single tensors (the convex path) or
 nested dicts of tensors (the LM path); optimizers are functional (a step
-returns new tensors), so both tracks can start from one ``w`` and a
-snapshot is a reference, not a copy.
+returns new tensors), so both tracks can start from one ``w``.
 """
 from __future__ import annotations
 
@@ -50,14 +55,10 @@ from .timemodel import SimulatedClock
 from .trace import Trace
 
 
-# Device bytes the race's slow-track snapshots may hold within one chunk.
-# The convex carries are a few KB and never reach it.  The 4-layer
-# falcon-mamba-7b carry (parameters and AdamW moments) is 9.5 GB, and one
-# snapshot of it does not fit beside the run's peak on an 80 GB H100 (it
-# ran out of memory with one; PERF.md).  A cap measured from free memory
-# when the race starts misses the later stages' higher peak, so the
-# budget is a constant between the two.
-RACE_SNAPSHOT_BYTES = 1 << 30
+# The race's chunks double (cumulative sizes 2, 4, 8, …).  False runs
+# chunks of one step after the first two, reading condition (3) once per
+# step with no freeze: the tests hold the doubling race to it.
+RACE_DOUBLING = True
 
 
 # ------------------------------------------------------------------ schedule
@@ -297,12 +298,6 @@ class ComposedPolicy(ExpansionPolicy):
             p.stage_end(info, records)
 
 
-def tree_nbytes(tree) -> int:
-    """Device bytes held by the tensor leaves of ``tree``."""
-    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
-               if isinstance(t, torch.Tensor))
-
-
 def _host(t: torch.Tensor) -> np.ndarray:
     # numpy has no bfloat16: such leaves come back widened to float32
     t = t.detach().cpu()
@@ -327,6 +322,32 @@ def _store(buf, s: int, w) -> None:
     def put(b, x):
         b[s] = x
     tree_map(put, buf, w)
+
+
+def _hold(frozen: torch.Tensor, old, new):
+    """``new`` with each tensor leaf kept at ``old``'s value where the
+    device bool ``frozen`` is raised.  ``new``'s dicts (fresh from an
+    optimizer step) are overwritten in place, leaf by leaf, so each
+    unkept leaf is freed as soon as its select is made: one leaf of
+    temporaries, never a second tree.  Host-side leaves keep ``new``'s
+    value (the race restores them from its host record)."""
+    if isinstance(new, dict):
+        for k in new:
+            new[k] = _hold(frozen, old[k], new[k])
+        return new
+    return tree_map(lambda o, n: torch.where(frozen, o, n)
+                    if isinstance(n, torch.Tensor) else n, old, new)
+
+
+def _host_part(tree):
+    """The host-side leaves of ``tree``, tensors blanked to None."""
+    return tree_map(lambda x: None if isinstance(x, torch.Tensor) else x,
+                    tree)
+
+
+def _with_host_part(tree, part):
+    return tree_map(lambda x, h: x if isinstance(x, torch.Tensor) else h,
+                    tree, part)
 
 
 def _first_trigger(f_slow: np.ndarray, f_fast: np.ndarray, lo: int,
@@ -379,16 +400,19 @@ class BetEngine:
                "probe": probe, "progress": progress, "dataset": dataset,
                "step_count": 0, "transfers": 0, "stages": 0, "overshoot": 0}
 
+        # the live carry: only this list holds it, so each step's output
+        # replaces its input and no earlier carry stays referenced
+        carry = [w, state]
+        del w, state
         if policy.kind == "two_track":
-            w, state = self._run_two_track(ctx, dataset, optimizer, objective,
-                                           policy, w, state, full_data)
+            self._run_two_track(ctx, dataset, optimizer, objective, policy,
+                                carry, full_data)
         else:
             for info in self.stage_infos(policy, N):
-                state = optimizer.reset_memory(state)  # f̂_t changed
-                w, state = self._run_scan_stage(
-                    ctx, dataset, optimizer, objective, policy, info,
-                    w, state, full_data)
-        trace.params = w
+                carry[1] = optimizer.reset_memory(carry[1])  # f̂_t changed
+                self._run_scan_stage(ctx, dataset, optimizer, objective,
+                                     policy, info, carry, full_data)
+        trace.params = carry[0]
         trace.meta["host_transfers"] = ctx["transfers"]
         trace.meta["race_overshoot"] = ctx["overshoot"]
         trace.meta["stages"] = ctx["stages"]
@@ -419,28 +443,31 @@ class BetEngine:
                 for stage, n_t in enumerate(windows)]
 
     # ------------------------------------------------------------ scan stages
-    def _run_chunk(self, ctx, optimizer, objective, w, state, win, full_data,
-                   k: int, *, eval_full: bool):
-        """``k`` inner steps on ``win``; per-step records land in device
-        buffers and come back in one pull."""
-        dev = tree_leaves(w)[0].device
+    def _run_chunk(self, ctx, optimizer, objective, carry: list, win,
+                   full_data, k: int, *, eval_full: bool):
+        """``k`` inner steps on ``win`` from ``carry`` ([w, state], updated
+        in place); per-step records land in device buffers and come back
+        in one pull."""
+        dev = tree_leaves(carry[0])[0].device
         bufs = {"f": torch.empty((k,), dtype=torch.float32, device=dev)}
         if eval_full:
             bufs["f_full"] = torch.empty((k,), dtype=torch.float32, device=dev)
         if ctx["probe"] is not None:
-            bufs["w"] = _param_buffer(w, k)
+            bufs["w"] = _param_buffer(carry[0], k)
         for j in range(k):
-            w, state, aux = optimizer.step(w, state, objective, win)
+            w, state, aux = optimizer.step(*carry, objective, win)
+            carry[:] = (w, state)
             bufs["f"][j] = aux["f"]
             if eval_full:
-                bufs["f_full"][j] = objective(w, full_data)
+                bufs["f_full"][j] = objective(carry[0], full_data)
             if "w" in bufs:
-                _store(bufs["w"], j, w)
-        return w, state, _pull(ctx, bufs)
+                _store(bufs["w"], j, carry[0])
+        return _pull(ctx, bufs)
 
     def _run_scan_stage(self, ctx, dataset, optimizer, objective, policy,
-                        info: StageInfo, w, state, full_data, *,
+                        info: StageInfo, carry: list, full_data, *,
                         eval_full=None):
+        """One stage from ``carry`` ([w, state], updated in place)."""
         eval_full = policy.eval_full if eval_full is None else eval_full
         win = dataset.window(info.n_t)
         if self.wait_on_expand:
@@ -449,9 +476,8 @@ class BetEngine:
         rec = StageRecords()
         while True:
             k = int(policy.plan_steps(info, rec.steps))
-            w, state, pulled = self._run_chunk(
-                ctx, optimizer, objective, w, state, win, full_data, k,
-                eval_full=eval_full)
+            pulled = self._run_chunk(ctx, optimizer, objective, carry, win,
+                                     full_data, k, eval_full=eval_full)
             rec.add_chunk(pulled["f"], pulled.get("f_full"), pulled.get("w"))
             if policy.should_expand(info, rec):
                 break
@@ -460,8 +486,7 @@ class BetEngine:
                     f"policy {policy.name} never expanded after {rec.steps} steps")
         self._flush_stage(ctx, policy, info, rec)
         policy.stage_end(info, rec)
-        self._stage_boundary(ctx, info, w, state)
-        return w, state
+        self._stage_boundary(ctx, info, *carry)
 
     def _stage_boundary(self, ctx, info: StageInfo, w, state) -> None:
         """Once-per-stage boundary: the stage's records are flushed, the
@@ -505,29 +530,30 @@ class BetEngine:
     def _race(self, ctx, optimizer, objective, policy, w, st_slow, st_fast,
               win_t, win_prev, full_data):
         """One race round: both tracks step from ``w`` until condition (3)
-        fires or ``max_stage_iters`` elapse, in chunks with one pull each
-        (module docstring).  Returns the slow track's carries at the
-        trigger and the round's pulled histories, cut at the trigger."""
+        fires or ``max_stage_iters`` elapse, in chunks with one pull each,
+        the slow track frozen on the device from the trigger on (module
+        docstring).  Returns the slow track's carries at the trigger and
+        the round's pulled histories, cut at the trigger."""
         M = int(policy.max_stage_iters)
         dev = tree_leaves(w)[0].device
         hist = torch.empty((3, M), dtype=torch.float32, device=dev)
         W = _param_buffer(w, M) if ctx["probe"] is not None else None
-        per_snap = tree_nbytes((w, st_slow))
-        cap = RACE_SNAPSHOT_BYTES // per_snap if per_snap else M
         w_slow = w_fast = w
         host = np.empty((3, 0), dtype=np.float32)
         host_W = []
         s, trig = 0, None
         while trig is None and s < M:
-            # chunk end: the next cumulative power of two, and no more
-            # snapshots than the budget holds (none are needed before s=2,
-            # nor after the chunk's last step, which is the live carry)
-            end = min(M, 2 if s < 2 else 1 << s.bit_length(),
-                      max(s + 1, 2) + cap)
-            start, snaps = s, {}
+            end = min(M, 2 if s < 2 else
+                      1 << s.bit_length() if RACE_DOUBLING else s + 1)
+            start, frozen, host_parts = s, None, {}
             while s < end:
-                w_slow, st_slow, aux = optimizer.step(w_slow, st_slow,
-                                                      objective, win_t)
+                new_w, new_st, aux = optimizer.step(w_slow, st_slow,
+                                                    objective, win_t)
+                if frozen is not None:      # a trigger may have fired
+                    new_w = _hold(frozen, w_slow, new_w)
+                    new_st = _hold(frozen, st_slow, new_st)
+                w_slow, st_slow = new_w, new_st
+                del new_w, new_st
                 w_fast, st_fast, _ = optimizer.step(w_fast, st_fast,
                                                     objective, win_prev)
                 hist[0, s] = (objective(w_slow, win_t)
@@ -537,8 +563,10 @@ class BetEngine:
                 if W is not None:
                     _store(W, s, w_slow)
                 s += 1
-                if 2 <= s < end:
-                    snaps[s] = (w_slow, st_slow)
+                if 2 <= s < end:            # condition (3) at step s
+                    hit = hist[0, s // 2 - 1] < hist[1, s - 1]
+                    frozen = hit if frozen is None else frozen | hit
+                    host_parts[s] = _host_part(st_slow)
             tensors = {"hist": hist[:, start:end]}
             if W is not None:
                 tensors["W"] = tree_map(lambda b: b[start:end], W)
@@ -549,7 +577,7 @@ class BetEngine:
             # condition (3), tested on the host over the chunk's steps
             trig = _first_trigger(host[0], host[1], start + 1, end)
             if trig is not None and trig < end:
-                w_slow, st_slow = snaps[trig]
+                st_slow = _with_host_part(st_slow, host_parts[trig])
                 ctx["overshoot"] += end - trig
                 s = trig
         out = {"hist": host[:, :s], "triggered": trig is not None}
@@ -558,8 +586,12 @@ class BetEngine:
         return w_slow, st_slow, out
 
     def _run_two_track(self, ctx, dataset, optimizer, objective,
-                       policy: TwoTrack, w, state, full_data):
+                       policy: TwoTrack, carry: list, full_data):
+        """The racing stages, then the final phase, from ``carry`` ([w,
+        state], updated in place)."""
         clock, cost, trace = ctx["clock"], ctx["cost"], ctx["trace"]
+        w, state = carry
+        carry.clear()
         *racing, final_info = self.stage_infos(policy, dataset.n)
         for info in racing:
             n_prev, n_t = info.n_prev, info.n_t
@@ -622,8 +654,9 @@ class BetEngine:
             self._stage_boundary(ctx, info, w, state)
 
         # final phase: full window until the step budget is spent
-        state = optimizer.reset_memory(
-            state if self.carry_state else optimizer.init(w))
-        return self._run_scan_stage(
-            ctx, dataset, optimizer, objective, policy, final_info, w, state,
-            full_data, eval_full=policy.final_eval_full)
+        carry[:] = (w, optimizer.reset_memory(
+            state if self.carry_state else optimizer.init(w)))
+        del w, state
+        self._run_scan_stage(ctx, dataset, optimizer, objective, policy,
+                             final_info, carry, full_data,
+                             eval_full=policy.final_eval_full)

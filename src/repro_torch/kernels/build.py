@@ -22,7 +22,9 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {"linear_grad": CSRC / "linear_grad.cu",
-           "ssm_scan": CSRC / "ssm_scan.cu"}
+           "ssm_scan": CSRC / "ssm_scan.cu",
+           "rglru_scan": CSRC / "rglru_scan.cu",
+           "flash_attention": CSRC / "flash_attention.cu"}
 FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -5,11 +5,11 @@ A tensor on the CPU goes to the kernel's plain PyTorch version
 or the call raises — there is no fallback from the card to the plain
 version.
 
-``ssm_scan`` is differentiable, as the reference's is: the kernel is the
-forward pass and the backward pass is the VJP of the plain version,
-recomputed from the saved inputs (``torch.autograd.Function``; the
-reference wraps its Pallas kernel in a ``custom_vjp`` the same way and
-has no backward kernel either).
+``flash_attention``, ``ssm_scan`` and ``rglru_scan`` are differentiable,
+as the reference's are: the kernel is the forward pass and the backward
+pass is the VJP of the plain version, recomputed from the saved inputs
+(``torch.autograd.Function``; the reference wraps its Pallas kernels in a
+``custom_vjp`` the same way and has no backward kernels either).
 
 ``CALLS`` counts kernel launches per kernel (reset with ``reset_calls``):
 a run on the card proves with it that its main path went through the
@@ -22,8 +22,10 @@ import collections
 
 import torch
 
+from . import flash_attention as _fa
 from . import linear_grad as _lg
 from . import ref as _ref
+from . import rglru_scan as _rg
 from . import ssm_scan as _ss
 
 CALLS: collections.Counter = collections.Counter()
@@ -56,6 +58,47 @@ def linear_value_grad(X, y, w, *, loss: str = "squared_hinge"):
     return out
 
 
+def _plain_vjp(plain, saved, need, g, **kw):
+    """The gradients of ``plain(*saved, **kw)`` against cotangent ``g``
+    for the inputs ``need`` marks (None for the others), recomputed from
+    the saved inputs."""
+    inputs = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
+    with torch.enable_grad():
+        y = plain(*inputs, **kw)
+    wanted = [t for t, n in zip(inputs, need) if n]
+    grads = iter(torch.autograd.grad(y, wanted, g))
+    return tuple(next(grads) if n else None for n in need)
+
+
+# -------------------------------------------------------- flash attention
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = dict(causal=causal, window=window)
+        if not _on_card("flash_attention", q):
+            return _ref.gqa_attention(q, k, v, causal=causal, window=window)
+        out = _fa.flash_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), causal=causal,
+                                  window=window)
+        CALLS["flash_attention"] += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return _plain_vjp(_ref.gqa_attention, ctx.saved_tensors,
+                          ctx.needs_input_grad[:3], g,
+                          **ctx.mask) + (None, None)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """Attention in the model's layout, q (B, S, H, hd) and k, v
+    (B, S, KV, hd) -> (B, S, H, hd), GQA by head groups, any S — the
+    kernel on the card, the plain version on the CPU; differentiable in
+    q, k and v."""
+    return _FlashAttention.apply(q, k, v, causal, window)
+
+
 # --------------------------------------------------------------- ssm scan
 class _SSMScan(torch.autograd.Function):
     @staticmethod
@@ -70,14 +113,8 @@ class _SSMScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        need = ctx.needs_input_grad
-        inputs = [t.detach().requires_grad_(n)
-                  for t, n in zip(ctx.saved_tensors, need)]
-        with torch.enable_grad():
-            y = _ref.ssm_scan(*inputs)
-        wanted = [t for t, n in zip(inputs, need) if n]
-        grads = iter(torch.autograd.grad(y, wanted, g))
-        return tuple(next(grads) if n else None for n in need)
+        return _plain_vjp(_ref.ssm_scan, ctx.saved_tensors,
+                          ctx.needs_input_grad, g)
 
 
 def ssm_scan(u, delta, B_ssm, C_ssm, A_log, D):
@@ -85,3 +122,27 @@ def ssm_scan(u, delta, B_ssm, C_ssm, A_log, D):
     C_ssm (B, S, N), A_log (di, N), D (di,) — the kernel on the card, the
     plain version on the CPU; differentiable in all six."""
     return _SSMScan.apply(u, delta, B_ssm, C_ssm, A_log, D)
+
+
+# ------------------------------------------------------------- rglru scan
+class _RGLRUScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        if not _on_card("rglru_scan", a):
+            return _ref.rglru_scan(a, b)
+        y = _rg.rglru_scan(a.contiguous(), b.contiguous())
+        CALLS["rglru_scan"] += 1
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return _plain_vjp(_ref.rglru_scan, ctx.saved_tensors,
+                          ctx.needs_input_grad, g)
+
+
+def rglru_scan(a, b):
+    """The trajectory of h_t = a_t·h_{t-1} + b_t from h_0 = 0, a, b
+    (B, S, W) -> (B, S, W) in a's dtype — the kernel on the card, the plain
+    version on the CPU; differentiable in a and b."""
+    return _RGLRUScan.apply(a, b)

@@ -4,8 +4,11 @@ A family is the trio of factories the session builder needs for an LM
 run — ``build_params`` / ``step`` / ``objective`` — and the layer ``impl``
 that carries its training traffic.  This port carries ``mamba``, whose
 ``impl="pallas"`` routes the selective scan through the hand-written
-Hopper kernel (``kernels/ops.py::ssm_scan``); the reference's other
-families raise a ``SpecError`` that names the slice that brings them.
+Hopper kernel (``kernels/ops.py::ssm_scan``), and ``rglru``, whose
+``impl="pallas"`` routes the RG-LRU recurrence and the local attention
+through theirs (``rglru_scan``, ``flash_attention``); the reference's
+other families raise a ``SpecError`` that names the slice that brings
+them.
 """
 from __future__ import annotations
 
@@ -46,15 +49,15 @@ class LMFamily:
 FAMILIES: dict[str, LMFamily] = {
     "mamba": LMFamily("mamba", config_families=("ssm",), impl="pallas",
                       kernels=("ssm_scan",)),
+    "rglru": LMFamily("rglru", config_families=("hybrid",), impl="pallas",
+                      kernels=("rglru_scan", "flash_attention")),
 }
 
 # the reference's other adapters: name -> (config families, the slice)
 PENDING: dict[str, tuple] = {
     "transformer": (("dense", "vlm", "audio"),
-                    "the transformer slice (ROADMAP queue A9)"),
-    "rglru": (("hybrid",), "the rglru slice (ROADMAP queue A9: kernels B4 "
-                           "and B2)"),
-    "moe": (("moe",), "the moe slice (ROADMAP queue A9)"),
+                    "the transformer slice (ROADMAP queue A)"),
+    "moe": (("moe",), "the moe slice (ROADMAP queue A)"),
 }
 
 # ModelConfig.family -> adapter name (the "auto" derivation)

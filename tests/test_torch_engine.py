@@ -114,7 +114,7 @@ def test_two_track_trigger_steps_match_reference():
 def test_every_optimizer_step_calls_the_kernel_wrapper_once(monkeypatch):
     """On the card, ``ops.CALLS`` counts kernel launches; on the CPU the
     same wrapper serves the plain version, so count its calls here: two
-    per race step (those run past a trigger and rolled back included),
+    per race step (those run past a trigger and discarded included),
     one per final-phase and batch step — the equality chip_smoke.py
     asserts on the card."""
     calls = []
@@ -140,16 +140,18 @@ def test_every_optimizer_step_calls_the_kernel_wrapper_once(monkeypatch):
 def test_race_overshoot_rolls_back_to_the_trigger(optimizer, overshoot,
                                                   monkeypatch):
     """susy_like triggers mid-chunk (after 6 race steps with Newton-CG, 18
-    with GD): the chunked race runs on to the chunk's end, then rolls the
-    slow track back.  Everything it returns is bitwise that of a race in
-    chunks of one step (room for no snapshot)."""
+    with GD): the chunked race runs on to the chunk's end with the slow
+    track frozen on the device from the trigger on.  Everything it returns
+    is bitwise that of a race in chunks of one step (``RACE_DOUBLING``
+    off), which reads condition (3) after every step and freezes
+    nothing."""
     spec = P.RunSpec.from_json(_spec("two_track", {"final_steps": 2},
                                      optimizer=optimizer).to_json())
     spec = spec.replace(data=spec.data.replace(dataset="susy_like"))
     runs = []
     for single in (False, True):
         if single:
-            monkeypatch.setattr(tengine, "RACE_SNAPSHOT_BYTES", 0)
+            monkeypatch.setattr(tengine, "RACE_DOUBLING", False)
         sess = P.build(spec, device="cpu")
         carries, record = [], sess.engine.stage_callback
         sess.engine.stage_callback = lambda end, record=record, \

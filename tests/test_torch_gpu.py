@@ -1,6 +1,6 @@
 """Tests of the port that need a CUDA card: the hand-written kernels
-against their float64 plain versions, the scan's autograd on the card,
-and the main paths on the card against the CPU.  They skip (deciding
+against their float64 plain versions, the scans' and the attention's
+autograd on the card, and the main paths on the card against the CPU.  They skip (deciding
 inside each test) where there is no card.
 
 This file imports neither JAX nor the reference, so it runs on a machine
@@ -13,7 +13,8 @@ import pytest
 import torch
 
 import repro_torch.api as P
-from repro_torch.kernels import linear_grad, ops, ref, ssm_scan
+from repro_torch.kernels import (flash_attention, linear_grad, ops, ref,
+                                 rglru_scan, ssm_scan)
 
 pytestmark = pytest.mark.gpu
 
@@ -163,11 +164,12 @@ def test_ssm_scan_refuses_what_it_does_not_take():
                           .transpose(1, 2), *args[1:])
 
 
-def test_lm_path_on_card_matches_cpu():
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-9b"])
+def test_lm_path_on_card_matches_cpu(arch):
     _need_card()
     spec = P.RunSpec(
         data=P.DataSpec(kind="lm", corpus_size=32, seq_len=32, eval_rows=8),
-        model=P.ModelSpec(arch="falcon-mamba-7b", reduced=True,
+        model=P.ModelSpec(arch=arch, reduced=True,
                           overrides={"dtype": "float32"}),
         optimizer=P.OptimizerSpec("adamw_lm", {"lr": 1e-3,
                                                "batch_size": 4}),
@@ -182,11 +184,140 @@ def test_lm_path_on_card_matches_cpu():
                    for k, v in cpu_sess.w0.items()}
     ops.reset_calls()
     gpu = gpu_sess.run()
-    layers = gpu_sess.model_config.num_layers
-    assert ops.CALLS["ssm_scan"] == layers * 2 * len(gpu.points)
+    # a train step and an f̂ probe per step: two forward passes, each
+    # launching the family's kernels once per layer that runs them
+    counts = {t: sum(x == t for x in gpu_sess.model_config.layer_types())
+              for t in ("ssm", "rec", "attn")}
+    passes = 2 * len(gpu.points)
+    want = {"ssm_scan": counts["ssm"] * passes,
+            "rglru_scan": counts["rec"] * passes,
+            "flash_attention": counts["attn"] * passes}
+    assert dict(ops.CALLS) == {k: n for k, n in want.items() if n}
     cpu = cpu_sess.run()
     for col in ("step", "stage", "window", "time", "accesses"):
         assert gpu.column(col) == cpu.column(col), col
     # the bound chip_smoke.py states for the LM card-vs-CPU check
     np.testing.assert_allclose(gpu.column("f_full"), cpu.column("f_full"),
                                rtol=1e-4)
+
+
+# -------------------------------------------------------- rglru scan (B4)
+def _rglru_inputs(B, S, W, seed, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    a = 1.0 / (1.0 + np.exp(-rng.standard_normal((B, S, W))))
+    b = rng.standard_normal((B, S, W))
+    return [torch.from_numpy(x.astype(np.float32)).cuda().to(dtype)
+            for x in (a, b)]
+
+
+# against the float64 plain version, relative to 1 + |y| (chip_smoke.py
+# states the same): float32 carries h in float32 through a contracting
+# recurrence, 1e-5; bfloat16 rounds each y to bfloat16, 5e-2 (the
+# reference's own bounds, tests/test_kernels.py)
+RGLRU_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
+
+
+@pytest.mark.parametrize("B,S,W", [(1, 32, 64), (2, 100, 96), (1, 64, 256),
+                                   (3, 77, 4096 + 40), (2, 4096, 4096),
+                                   (1, 5, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_scan_kernel_matches_float64_plain_version(B, S, W, dtype):
+    _need_card()
+    a, b = _rglru_inputs(B, S, W, seed=B + S + W, dtype=dtype)
+    ops.reset_calls()
+    y = ops.rglru_scan(a, b)
+    torch.cuda.synchronize()
+    assert ops.CALLS["rglru_scan"] == 1
+    assert y.dtype == dtype and y.shape == (B, S, W)
+    y64 = ref.rglru_scan(a.double(), b.double())
+    err = (y.double() - y64).abs() / (1.0 + y64.abs())
+    assert bool(torch.isfinite(y).all())
+    assert float(err.max()) <= RGLRU_TOL[dtype]
+    assert torch.equal(y, ops.rglru_scan(a, b))          # deterministic
+
+
+def test_rglru_scan_grad_on_card_matches_plain_autograd():
+    _need_card()
+    args = _rglru_inputs(2, 48, 96, seed=5)
+    a = [x.clone().requires_grad_(True) for x in args]
+    b = [x.clone().requires_grad_(True) for x in args]
+    g = torch.randn((2, 48, 96), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(0))
+    ops.rglru_scan(*a).backward(g)
+    ref.rglru_scan(*b).backward(g)
+    for x, y in zip(a, b):
+        assert torch.equal(x.grad, y.grad)
+
+
+def test_rglru_scan_refuses_what_it_does_not_take():
+    _need_card()
+    a, b = _rglru_inputs(1, 8, 32, seed=0)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        rglru_scan.rglru_scan(a.double(), b.double())
+    with pytest.raises(TypeError, match="share"):
+        rglru_scan.rglru_scan(a, b.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        rglru_scan.rglru_scan(a.transpose(1, 2).contiguous().transpose(1, 2),
+                              b)
+
+
+# --------------------------------------------------- flash attention (B2)
+def _qkv(B, S, H, KV, hd, seed, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((B, S, n, hd))
+                             .astype(np.float32)).cuda().to(dtype)
+            for n in (H, KV, KV)]
+
+
+# against the float64 plain version, relative to 1 + |o| (chip_smoke.py
+# states the same): float32 accumulation over at most S keys, 1e-4;
+# bfloat16 rounds o to bfloat16, 2e-2 (the reference's own bounds)
+ATTN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,window", [
+    (1, 64, 2, 2, 32, 0), (2, 128, 4, 2, 64, 0), (1, 96, 8, 1, 64, 0),
+    (2, 160, 3, 3, 32, 0), (1, 96, 2, 2, 32, 16), (1, 200, 4, 1, 64, 48),
+    (1, 300, 16, 1, 256, 128), (2, 77, 4, 4, 128, 0), (1, 1, 2, 1, 64, 0),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_float64_plain_version(
+        B, S, H, KV, hd, window, dtype):
+    _need_card()
+    q, k, v = _qkv(B, S, H, KV, hd, seed=B + S + H + hd, dtype=dtype)
+    ops.reset_calls()
+    o = ops.flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert ops.CALLS["flash_attention"] == 1
+    assert o.dtype == dtype and o.shape == (B, S, H, hd)
+    o64 = ref.gqa_attention(q.double(), k.double(), v.double(),
+                            window=window)
+    err = (o.double() - o64).abs() / (1.0 + o64.abs())
+    assert bool(torch.isfinite(o).all())
+    assert float(err.max()) <= ATTN_TOL[dtype]
+    assert torch.equal(o, ops.flash_attention(q, k, v, window=window))
+
+
+def test_flash_attention_grad_on_card_matches_plain_autograd():
+    _need_card()
+    args = _qkv(1, 64, 2, 1, 32, seed=3)
+    a = [x.clone().requires_grad_(True) for x in args]
+    b = [x.clone().requires_grad_(True) for x in args]
+    g = torch.randn((1, 64, 2, 32), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(0))
+    ops.flash_attention(*a, window=16).backward(g)
+    ref.gqa_attention(*b, window=16).backward(g)
+    for x, y in zip(a, b):
+        assert torch.equal(x.grad, y.grad)
+
+
+def test_flash_attention_refuses_what_it_does_not_take():
+    _need_card()
+    q, k, v = _qkv(1, 16, 4, 2, 32, seed=0)
+    with pytest.raises(ValueError, match="hd in 32, 64, 128, 256"):
+        flash_attention.flash_attention(*_qkv(1, 16, 4, 2, 48, seed=0))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention.flash_attention(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention.flash_attention(q.transpose(1, 2).contiguous()
+                                        .transpose(1, 2), k, v)

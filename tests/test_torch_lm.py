@@ -6,6 +6,7 @@ data helpers, the registry and the validation; then, within the port,
 that the chunked Two-Track race returns what a race in chunks of one step
 returns on LM carries, and how many scan launches an LM run implies."""
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -190,8 +191,8 @@ def _race_calls(monkeypatch):
 
 def test_lm_chunked_race_equals_a_race_of_single_steps(monkeypatch):
     """Two-Track on LM carries (dicts of parameters and AdamW moments):
-    the chunked race returns bitwise what a race with room for no snapshot
-    (chunks of one step) returns, and the scan runs
+    the chunked race returns bitwise what a race in chunks of one step
+    (``RACE_DOUBLING`` off) returns, and the scan runs
     num_layers times per forward pass the traces and the overshoot imply
     (per race step: two train steps and three f̂ probes; per final step:
     one train step and one f̂ probe) — the count chip_smoke.py holds the
@@ -204,7 +205,7 @@ def test_lm_chunked_race_equals_a_race_of_single_steps(monkeypatch):
     runs = []
     for single in (False, True):
         if single:
-            monkeypatch.setattr(tengine, "RACE_SNAPSHOT_BYTES", 0)
+            monkeypatch.setattr(tengine, "RACE_DOUBLING", False)
         sess = P.build(spec, device="cpu")
         ends, record = [], sess.engine.stage_callback
         sess.engine.stage_callback = lambda e, record=record, ends=ends: (
@@ -226,6 +227,67 @@ def test_lm_chunked_race_equals_a_race_of_single_steps(monkeypatch):
             + tr.meta["race_overshoot"]
         final = sum("f_fast_on_t" not in p.extra for p in tr.points)
         assert n == layers * (5 * race + 2 * final)
+
+
+def test_lm_race_pulls_log2_times_per_stage_and_keeps_no_snapshot(
+        monkeypatch):
+    """A racing stage of s steps pulls ⌈log₂ s⌉ times (chunks end at 2, 4,
+    8, 16), and no slow-track carry outlives the race's need for it: at
+    most four parameter trees made by a step are alive at once (the stage
+    start, the old and new slow carry, the fast carry), whatever the
+    chunk size; a snapshot per step of the chunk from 8 to 16 held ten."""
+    import weakref
+
+    from repro_torch.api import lm as tlm
+    assert not hasattr(tengine, "RACE_SNAPSHOT_BYTES")
+    spec = P.RunSpec.from_json(_lm_spec(
+        "two_track", {"final_steps": 2, "max_stage_iters": 16,
+                      "condition": "eval", "final_eval_full": True},
+        n0=8).to_json())
+    real, refs, alive = tlm.LMStepOptimizer.step, [], []
+
+    def step(self, params, state, objective, data):
+        out = real(self, params, state, objective, data)
+        refs.append(weakref.ref(out[0]["final_norm"]))
+        alive.append(sum(r() is not None for r in refs))
+        return out
+
+    monkeypatch.setattr(tlm.LMStepOptimizer, "step", step)
+    sess = P.build(spec, device="cpu")
+    tr = sess.run()
+    stages = tr.column("stage")
+    race = [stages.count(s) for s in sorted(set(stages))][:-1]
+    assert race[0] == 16                 # the chunk from 8 to 16 ran
+    pulls = [b["transfers"] - a["transfers"] for a, b in
+             zip([{"transfers": 0}] + sess.stage_ends, sess.stage_ends)]
+    assert pulls[:-1] == [math.ceil(math.log2(s)) for s in race]
+    assert tr.meta["race_overshoot"] == 0
+    assert max(alive) <= 4
+
+
+def test_scan_stages_keep_no_stage_start_carry(monkeypatch):
+    """Under fixed_steps a step's output replaces its input as the only
+    live carry: the carry a stage started from is not held while its later
+    steps run (on the full-width hybrid that stale carry of parameters and
+    AdamW moments would be another 27.5 GB), so at most two parameter
+    trees made by a step are alive at once."""
+    import weakref
+
+    from repro_torch.api import lm as tlm
+    spec = P.RunSpec.from_json(_lm_spec(
+        "fixed_steps", {"inner_steps": 3, "final_steps": 3}).to_json())
+    real, refs, alive = tlm.LMStepOptimizer.step, [], []
+
+    def step(self, params, state, objective, data):
+        out = real(self, params, state, objective, data)
+        refs.append(weakref.ref(out[0]["final_norm"]))
+        alive.append(sum(r() is not None for r in refs))
+        return out
+
+    monkeypatch.setattr(tlm.LMStepOptimizer, "step", step)
+    tr = P.build(spec, device="cpu").run()
+    assert len(set(tr.column("stage"))) > 1 and len(alive) == 6
+    assert max(alive) <= 2
 
 
 def test_data_helpers_match_reference():
@@ -251,8 +313,9 @@ def test_configs_registry():
     assert cfg.dtype == torch.bfloat16
     assert tconfigs.get("falcon_mamba_7b") is cfg
     assert TT.vocab_padded(cfg) == JT.vocab_padded(ref) == 65024
-    with pytest.raises(tconfigs.NotPortedError, match="rglru slice"):
-        tconfigs.get("recurrentgemma-9b")
+    with pytest.raises(tconfigs.NotPortedError, match="moe slice"):
+        tconfigs.get("granite-moe-1b-a400m")
+    assert tconfigs.get("recurrentgemma-9b").family == "hybrid"
     with pytest.raises(KeyError, match="unknown architecture"):
         tconfigs.get("gpt-5")
 
@@ -270,9 +333,9 @@ def test_family_resolution():
     with pytest.raises(P.SpecError, match="unknown model family"):
         tfam.resolve_family(P.ModelSpec(arch="falcon-mamba-7b",
                                         family="lstm"), cfg)
-    hybrid = cfg.with_(family="hybrid")
+    moe = cfg.with_(family="moe")
     with pytest.raises(P.SpecError, match="not yet ported"):
-        tfam.resolve_family(P.ModelSpec(arch="falcon-mamba-7b"), hybrid)
+        tfam.resolve_family(P.ModelSpec(arch="falcon-mamba-7b"), moe)
 
 
 @pytest.mark.parametrize("change,needle", [

@@ -54,7 +54,7 @@ LM = dict(data=R.DataSpec(kind="lm"),
 
 
 @pytest.mark.parametrize("change,needle", [
-    (dict(LM, model=R.ModelSpec(arch="recurrentgemma-9b")), "rglru slice"),
+    (dict(LM, model=R.ModelSpec(arch="granite-moe-1b-a400m")), "moe slice"),
     (dict(data=R.DataSpec(plane="plane")), "data-plane slice"),
     (dict(topology=R.TopologySpec(hosts=2)), "distributed slice"),
     (dict(data=R.DataSpec(tiering=R.TieringSpec(enabled=True, hbm_bytes=1))),
