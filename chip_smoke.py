@@ -9,7 +9,8 @@ the script with a non-zero exit and no result line:
 
  1. environment — the card's name and power limit (nvidia-smi), the torch
     and CUDA versions; TF32 off; every kernel built from the sources in
-    the checkout (one nvcc per source, all started together).
+    the checkout (one nvcc per source, all started together); the SASS
+    opcodes that show each kernel's units (B2 must hold HGMMA and UTMALDG).
  2. kernels — each kernel against its plain PyTorch version computed in
     float64 on the card, at the shapes the main paths give it, timed with
     CUDA events (the card's time, and the time per call with the host's
@@ -47,6 +48,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -104,9 +106,12 @@ LOSSES = ("squared_hinge", "logistic")
 LM_LAYERS = 4
 LM_BATCH, LM_SEQ = 8, 256
 LM_CORPUS, LM_MAX_STAGE_ITERS = 512, 16
-# B3 shapes: (label, B, S, di, N); the first is what the LM path gives it
+# B3 shapes: (label, B, S, di, N); the first is what the LM path's train
+# step gives it, the second its f̂ probe (eval_rows 16), where 608 of the
+# run's 1,024 launches fall
 SCAN_SHAPES = [
     ("falcon-mamba-7b", LM_BATCH, LM_SEQ, 8192, 16),
+    ("probe", 16, LM_SEQ, 8192, 16),
     ("ragged", 3, 77, 8192 + 40, 16),
     ("small", 1, 32, 64, 4),
 ]
@@ -346,7 +351,7 @@ def scan_kernel_phase(torch, rt) -> dict:
     ops, ref = rt["ops"], rt["ref"]
     gen = torch.Generator(device="cuda").manual_seed(1)
     spin_rate = spin_cycles_per_s(torch)
-    main = None
+    rows = {}
     for label, B, S, di, N in SCAN_SHAPES:
         for dname in ("bfloat16", "float32"):
             dtype = getattr(torch, dname)
@@ -372,10 +377,11 @@ def scan_kernel_phase(torch, rt) -> dict:
             if not ok:
                 raise SystemExit(f"ssm_scan disagrees with its float64 plain "
                                  f"version at {label}/{dname}: {rel}")
-            if label == SCAN_SHAPES[0][0] and dname == "bfloat16":
-                main = row
+            if dname == "bfloat16" and label in ("falcon-mamba-7b",
+                                                 "probe"):
+                rows[label] = row
             del args, y, y64, err
-    return main
+    return rows
 
 
 def rglru_bounds_ms(B: int, S: int, W: int, elt: int) -> dict:
@@ -522,6 +528,9 @@ def attention_kernel_phase(torch, rt) -> dict:
                              f"plain version at {label}: {rel}")
         if label == ATTN_SHAPES[0][0]:
             main = row
+        if label == "probe":
+            main["probe_ms"] = row["kernel_ms"]
+            main["probe_bound_ms"] = row["bound_ms"]
         del q, k, v, o
         torch.cuda.empty_cache()
     return main
@@ -779,15 +788,29 @@ def lm_main_path_phase(torch, rt) -> dict:
     return summary
 
 
+def graph_nodes(loss) -> set:
+    """Every node of ``loss``'s autograd graph."""
+    seen, stack = set(), [loss.grad_fn]
+    while stack:
+        node = stack.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        stack.extend(f for f, _ in node.next_functions)
+    return seen
+
+
 def step_breakdown(torch, rt, sess, params, batch_size: int, path: str,
                    parts: dict) -> dict:
     """Where a train step's time goes: host-clock segments, each ended by
     a synchronize, of one step taken apart (forward with the graph, the
-    backward, the AdamW update), one f̂ probe, and each kernel's own share
-    of the backward: ``parts`` maps a name to (inputs, kernel call, calls
-    per step), and the kernel forward and the plain version's VJP are
-    timed at the path's shape.  Taken after the main path's counts were
-    read; the launches here are not counted there."""
+    backward, the AdamW update), one f̂ probe, and each kernel's share of
+    the forward and of the backward.  ``parts`` maps a name to (inputs,
+    kernel call, calls per step, its autograd node's name): the kernel
+    forward is timed alone at the path's shape; its plain-version VJP is
+    timed inside the step's backward, from a pre-hook to a hook on each
+    of its nodes, both ended by a synchronize.  Taken after the main
+    path's counts were read; the launches here are not counted there."""
     T, adam, tree_map = rt["transformer"], rt["adam"], rt["tree_map"]
     cfg = sess.model_config
     rows = sess.dataset.window(batch_size)
@@ -803,6 +826,30 @@ def step_breakdown(torch, rt, sess, params, batch_size: int, path: str,
         seg[name] = seg.get(name, 0.0) + time.perf_counter() - t0
         return out
 
+    def hook_vjps(loss) -> list:
+        handles = []
+        for node in graph_nodes(loss):
+            for name, (_, _, _, node_name) in parts.items():
+                if node.name() != node_name:
+                    continue
+                start = []
+
+                def pre(_, start=start):
+                    torch.cuda.synchronize()
+                    start.append(time.perf_counter())
+
+                def post(_, __, name=name, start=start):
+                    torch.cuda.synchronize()
+                    key = f"{name}_vjp_in_backward_s"
+                    seg[key] = seg.get(key, 0.0) \
+                        + time.perf_counter() - start.pop()
+                    seg[f"{name}_vjp_nodes"] = \
+                        seg.get(f"{name}_vjp_nodes", 0) + 1
+
+                handles += [node.register_prehook(pre),
+                            node.register_hook(post)]
+        return handles
+
     for rep in range(2):                # the first is a warm-up
         seg.clear()
         p = tree_map(lambda x: x.detach().requires_grad_(True), params)
@@ -810,8 +857,11 @@ def step_breakdown(torch, rt, sess, params, batch_size: int, path: str,
             loss = timed("forward_s", lambda: T.loss_fn(
                 cfg, p, batch, impl="pallas")[0])
             leaves = rt["tree_leaves"](p)
+            handles = hook_vjps(loss)
             flat = timed("backward_s",
                          lambda: torch.autograd.grad(loss, leaves))
+            for h in handles:
+                h.remove()
         it = iter(flat)
         grads = tree_map(lambda _: next(it), p)
         del p, loss, flat
@@ -819,18 +869,22 @@ def step_breakdown(torch, rt, sess, params, batch_size: int, path: str,
             params, grads, opt_state, lr=3e-4, weight_decay=0.1))
         del grads
         timed("probe_s", lambda: sess.objective(params, sess.eval_data))
-        for name, (inputs, call, _) in parts.items():
+        for name, (inputs, call, _, _) in parts.items():
             args = [a.requires_grad_(True) for a in inputs()]
-            y = timed(f"{name}_forward_s", lambda: call(*args))
-            timed(f"{name}_vjp_s", lambda: y.backward(torch.ones_like(y)))
-            del args, y
+            timed(f"{name}_forward_s", lambda: call(*args))
+            del args
     out = {"path": path, "breakdown": "one train step", **seg,
            "layers": cfg.num_layers}
-    for name, (_, _, count) in parts.items():
+    for name, (_, _, count, _) in parts.items():
+        if seg.get(f"{name}_vjp_nodes") != count:
+            raise SystemExit(f"{path} breakdown: {count} {name} calls a "
+                             f"step, {seg.get(f'{name}_vjp_nodes')} of its "
+                             f"nodes ran in the backward")
         out[f"{name}_calls_per_step"] = count
-        out[f"{name}_vjp_all_layers_s"] = seg[f"{name}_vjp_s"] * count
+        out[f"{name}_forward_share_of_forward"] = \
+            seg[f"{name}_forward_s"] * count / seg["forward_s"]
         out[f"{name}_vjp_share_of_backward"] = \
-            seg[f"{name}_vjp_s"] * count / seg["backward_s"]
+            seg[f"{name}_vjp_in_backward_s"] / seg["backward_s"]
     emit(out)
     return out
 
@@ -841,7 +895,8 @@ def lm_step_breakdown(torch, rt, sess, params) -> None:
     parts = {"scan": (lambda: scan_inputs(torch, gen, LM_BATCH, LM_SEQ,
                                           cfg.d_inner, cfg.ssm_state,
                                           cfg.dtype),
-                      rt["ops"].ssm_scan, cfg.num_layers)}
+                      rt["ops"].ssm_scan, cfg.num_layers,
+                      "_SSMScanBackward")}
     step_breakdown(torch, rt, sess, params, LM_BATCH, "lm", parts)
 
 
@@ -915,14 +970,14 @@ def hybrid_main_path_phase(torch, rt) -> dict:
     parts = {
         "rglru": (lambda: rglru_inputs(torch, gen, HY_BATCH, HY_SEQ,
                                        cfg.lru_width, cfg.dtype),
-                  ops.rglru_scan, types.count("rec")),
+                  ops.rglru_scan, types.count("rec"), "_RGLRUScanBackward"),
         "attention": (lambda: [torch.randn(
             (HY_BATCH, HY_SEQ, n, cfg.head_dim), generator=gen,
             device="cuda").to(cfg.dtype)
             for n in (cfg.num_heads, cfg.num_kv_heads, cfg.num_kv_heads)],
             lambda q, k, v: ops.flash_attention(q, k, v,
                                                 window=cfg.local_window),
-            types.count("attn")),
+            types.count("attn"), "_FlashAttentionBackward"),
     }
     summary["breakdown"] = step_breakdown(torch, rt, sess, params, HY_BATCH,
                                           "hybrid", parts)
@@ -965,6 +1020,29 @@ def lm_card_vs_cpu_phase(torch, rt, arch: str) -> None:
                          f"{rel} > {RTOL_F}")
 
 
+# SASS opcodes that show which units a kernel runs on: HGMMA (wgmma),
+# UTMALDG (TMA loads), SYNCS (mbarrier waits), HMMA and LDSM (mma.sync
+# and ldmatrix), MUFU.EX2 (the SFU's exp2)
+SASS_OPS = ("HGMMA", "UTMALDG", "SYNCS", "HMMA", "LDSM", "MUFU.EX2")
+
+
+def sass_phase(libs: dict) -> dict:
+    """Counts of SASS_OPS in each built library (cuobjdump -sass), one line
+    a library; B2's bfloat16 kernel must run on wgmma fed by TMA."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    counts = {}
+    for name, path in libs.items():
+        sass = subprocess.run([tool, "-sass", str(path)], check=True,
+                              capture_output=True, text=True).stdout
+        counts[name] = {op: sass.count(op) for op in SASS_OPS}
+        emit({"sass": name, **counts[name]})
+    fa = counts["flash_attention"]
+    if not (fa["HGMMA"] and fa["UTMALDG"]) or fa["HMMA"]:
+        raise SystemExit(f"flash_attention's SASS is not wgmma fed by TMA: "
+                         f"{fa}")
+    return counts
+
+
 def main() -> None:
     # the full-width runs hold most of the card: segments that grow in
     # place keep the allocator's split blocks from stranding memory
@@ -1005,10 +1083,12 @@ def main() -> None:
     emit({"build_s": time.perf_counter() - t0,
           "libraries": {k: str(v.relative_to(root)) for k, v in libs.items()},
           "ptxas": ptxas})
+    sass_phase(libs)
 
     # 2. kernels against their plain versions
     main_row = kernel_phase(torch, rt)
-    scan_row = scan_kernel_phase(torch, rt)
+    scan_rows = scan_kernel_phase(torch, rt)
+    scan_row = scan_rows["falcon-mamba-7b"]
     rglru_row = rglru_kernel_phase(torch, rt)
     attn_row = attention_kernel_phase(torch, rt)
     # 3. the main paths, each with its own launch counts
@@ -1039,6 +1119,8 @@ def main() -> None:
         "bound_ms": scan_row["bound_ms"], "bound_by": scan_row["bound_by"],
         "library_ms": None, "call_ms": scan_row["kernel_call_ms"],
         "sfu_bound_ms": scan_row["sfu_bound_ms"],
+        "probe_ms": scan_rows["probe"]["kernel_ms"],
+        "probe_bound_ms": scan_rows["probe"]["bound_ms"],
         "shape": [scan_row["B"], scan_row["S"], scan_row["di"],
                   scan_row["N"]], "dtype": scan_row["dtype"],
         "check": scan_row["check"]}, {
@@ -1062,6 +1144,8 @@ def main() -> None:
         "bound_ms": attn_row["bound_ms"], "bound_by": attn_row["bound_by"],
         "library_ms": attn_row["library_ms"],
         "call_ms": attn_row["kernel_call_ms"],
+        "probe_ms": attn_row["probe_ms"],
+        "probe_bound_ms": attn_row["probe_bound_ms"],
         "shape": [attn_row[k] for k in ("B", "S", "H", "KV", "hd")],
         "window": attn_row["window"], "dtype": attn_row["dtype"],
         "check": attn_row["check"]}]})

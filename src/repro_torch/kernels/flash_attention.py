@@ -6,9 +6,10 @@ q (B, S, H, hd) and k, v (B, S, KV, hd), read KV head h // (H/KV) for
 query head h instead of materializing the GQA repeat, mask a ragged
 sequence tail instead of padding it, and walk only the key tiles a
 causal (and windowed) query tile can reach: bfloat16 on the tensor cores
-(``mma.sync``), float32 on the CUDA cores.  This module is its wrapper:
-it checks the inputs, allocates the output with ``torch.empty`` and
-launches on the current stream.  Dispatch by device, the plain version
+(``wgmma`` fed by TMA loads behind a producer warpgroup), float32 on the
+CUDA cores.  This module is its wrapper: it checks the inputs, allocates
+the output with ``torch.empty`` and launches on the current stream (the
+bfloat16 kernel's tensor maps are encoded on the host at each launch).  Dispatch by device, the plain version
 for CPU tensors and the backward pass live in ``ops.py``.
 """
 from __future__ import annotations

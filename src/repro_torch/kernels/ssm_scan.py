@@ -2,11 +2,12 @@
 (B3).
 
 The CUDA kernel in ``csrc/ssm_scan.cu`` runs the time recurrence with one
-thread per (batch row, channel), the N-wide state in registers, and
-writes y = h·C + u·D in u's dtype.  This module is its wrapper: it checks
-the inputs, allocates y with ``torch.empty`` and launches on the current
-stream.  Dispatch by device, the plain version for CPU tensors and the
-backward pass live in ``ops.py``.
+thread per (batch row, channel), the N-wide state in registers, one SFU
+``ex2`` per state and step and tiles of u, delta, B and C loaded a tile
+ahead, and writes y = h·C + u·D in u's dtype.  This module is its
+wrapper: it checks the inputs, allocates y with ``torch.empty`` and
+launches on the current stream.  Dispatch by device, the plain version
+for CPU tensors and the backward pass live in ``ops.py``.
 """
 from __future__ import annotations
 

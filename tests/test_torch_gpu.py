@@ -135,6 +135,48 @@ def test_ssm_scan_kernel_matches_float64_plain_version(B, S, di, N, dtype):
     assert torch.equal(y, ops.ssm_scan(*args))           # deterministic
 
 
+def _scan_check(args, dtype):
+    """The kernel against its float64 plain version at SCAN_TOL, and a
+    repeat bitwise equal (the lane groups' shuffle sums run in a fixed
+    order)."""
+    y = ops.ssm_scan(*args)
+    torch.cuda.synchronize()
+    y64 = ref.ssm_scan(*(a.double() for a in args))
+    assert y.dtype == dtype and bool(torch.isfinite(y).all())
+    err = (y.double() - y64).abs() / (1.0 + y64.abs())
+    assert float(err.max()) <= SCAN_TOL[dtype]
+    assert torch.equal(y, ops.ssm_scan(*args))
+
+
+# the redesigned kernel's edges: N from 1 to 16 (padded to 4, 8, 16 states
+# and split over lane groups), di not a multiple of a lane group or of a
+# block's channels, S not a multiple of the 16-step tile, the f̂ probe's
+# shape
+@pytest.mark.parametrize("B,S,di,N", [
+    (2, 40, 96, 1), (2, 40, 96, 4), (2, 40, 96, 8), (2, 40, 96, 16),
+    (3, 33, 130, 13), (1, 17, 8192 + 3, 16), (1, 1, 37, 16),
+    (16, 256, 8192, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssm_scan_kernel_edges(B, S, di, N, dtype):
+    _need_card()
+    _scan_check(_scan_inputs(B, S, di, N, seed=B * S + di + N, dtype=dtype),
+                dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssm_scan_kernel_strong_decay_and_zero_delta(dtype):
+    _need_card()
+    args = _scan_inputs(2, 64, 256, 16, seed=11, dtype=dtype)
+    # A = -exp(log n + 6) = -403 n: delta·A below -126 / log2 e for most
+    # steps, so the exponentials underflow to 0 (the SFU's flush, the
+    # polynomial's cut-off) and h_t is (delta_t u_t) B_t alone
+    strong = args[:4] + [args[4] + 6.0, args[5]]
+    _scan_check(strong, dtype)
+    # delta = 0: every exponential is 1 and the state never moves
+    zero = [args[0], torch.zeros_like(args[1])] + args[2:]
+    _scan_check(zero, dtype)
+
+
 def test_ssm_scan_grad_on_card_matches_plain_autograd():
     _need_card()
     args = _scan_inputs(2, 48, 96, 8, seed=5)
@@ -296,6 +338,32 @@ def test_flash_attention_kernel_matches_float64_plain_version(
     assert bool(torch.isfinite(o).all())
     assert float(err.max()) <= ATTN_TOL[dtype]
     assert torch.equal(o, ops.flash_attention(q, k, v, window=window))
+
+
+# the wgmma kernel's edges in bfloat16: the path shape; S not a multiple
+# of its 128-row block (77, 1000); windows below one 64-key tile (16) and
+# not a multiple of it (100); GQA ratios 1, 2, 8 and 16; hd 32, 64, 128
+# and 256; one non-causal case
+@pytest.mark.parametrize("B,S,H,KV,hd,window,causal", [
+    (2, 4096, 16, 1, 256, 2048, True), (1, 77, 4, 4, 128, 0, True),
+    (1, 1000, 16, 1, 256, 300, True), (1, 200, 4, 2, 64, 16, True),
+    (1, 300, 8, 1, 64, 100, True), (2, 130, 8, 8, 32, 0, True),
+    (1, 256, 16, 2, 128, 64, True), (1, 190, 8, 1, 32, 0, True),
+    (1, 150, 16, 1, 64, 0, False), (1, 1000, 4, 1, 128, 0, False)])
+def test_flash_attention_bf16_kernel_edges(B, S, H, KV, hd, window, causal):
+    _need_card()
+    q, k, v = _qkv(B, S, H, KV, hd, seed=S + H + hd, dtype=torch.bfloat16)
+    o = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    o64 = torch.cat([ref.gqa_attention(q[i:i + 1].double(),
+                                       k[i:i + 1].double(),
+                                       v[i:i + 1].double(), causal=causal,
+                                       window=window) for i in range(B)])
+    err = (o.double() - o64).abs() / (1.0 + o64.abs())
+    assert bool(torch.isfinite(o).all())
+    assert float(err.max()) <= ATTN_TOL[torch.bfloat16]
+    assert torch.equal(o, ops.flash_attention(q, k, v, causal=causal,
+                                              window=window))
 
 
 def test_flash_attention_grad_on_card_matches_plain_autograd():
