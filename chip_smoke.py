@@ -18,7 +18,8 @@ the script with a non-zero exit and no result line:
     where one PyTorch call computes the same function.  One JSON line per
     shape.  B1 (linear_value_grad), B3 (ssm_scan), B4 (rglru_scan) — the
     scans' plain versions timed as CUDA graph replays (graph_ms) — and B2
-    (flash_attention).
+    (flash_attention).  B1 and B4, whose blocks meet through a per-call
+    scratch, must also repeat their bits on a second call.
  3. main paths — ``repro_torch.api.build(spec, device="cuda").run()``,
     each path with the launch counts zeroed just before it and read just
     after:
@@ -63,12 +64,12 @@ PEAK_F32_FLOPS_S = 67e12
 PEAK_BF16_FLOPS_S = 989e12
 
 # Kernel check tolerance against the float64 plain version.  The kernel
-# accumulates in float32: per-lane partials over a warp's rows, a fixed
-# warp order within a block, then a fixed-order sum over at most
-# 4 x SMs block partials.  Rounding grows like sqrt(terms) x 6e-8, i.e.
-# ~1e-6 relative at n = 4M; 1e-5 on L and 1e-4 on g leave an order of
-# magnitude of room and still catch a dropped row, a wrong loss branch or
-# a racy reduction (all far above 1e-3).
+# accumulates in float32: per-lane partials over a row group's rows, the
+# groups and warps of a block in a fixed order, then a two-level
+# fixed-order sum over at most one block partial an SM.  Rounding grows
+# like sqrt(terms) x 6e-8, i.e. ~1e-6 relative at n = 4M; 1e-5 on L and
+# 1e-4 on g leave an order of magnitude of room and still catch a dropped
+# row, a wrong loss branch or a racy reduction (all far above 1e-3).
 RTOL_L = 1e-5
 TOL_G = 1e-4
 # card-vs-CPU main paths: the same algorithm in float32 with different
@@ -130,12 +131,16 @@ HY_WIDTH, HY_HEADS, HY_KV, HY_HD, HY_WINDOW = 4096, 16, 1, 256, 2048
 # 5e-2 (the reference's own bounds, tests/test_kernels.py)
 RGLRU_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 # B4 shapes (label, B, S, W, dtypes); the first is what the hybrid path's
-# train step gives it, the second its f̂ probe
+# train step gives it, the second its f̂ probe; "ragged" is shorter than
+# one of the kernel's 256-step chunks, "ragged_chunks" has three whole
+# chunks and a ragged fourth, with W not a multiple of a 16-byte vector of
+# bfloat16 (the kernel's element-at-a-time path)
 RGLRU_SHAPES = [
     ("recurrentgemma-9b", HY_BATCH, HY_SEQ, HY_WIDTH,
      ("bfloat16", "float32")),
     ("probe", HY_EVAL_ROWS, HY_SEQ, HY_WIDTH, ("bfloat16",)),
     ("ragged", 3, 77, HY_WIDTH + 40, ("bfloat16", "float32")),
+    ("ragged_chunks", 3, 1000, HY_WIDTH + 4, ("bfloat16", "float32")),
 ]
 # B2 against its float64 plain version, elementwise relative to 1 + |o|:
 # float32 accumulates in float32 over at most S keys, 1e-4; bfloat16
@@ -290,21 +295,23 @@ def kernel_phase(torch, rt) -> dict:
         X64, y64, w64 = X.double(), y.double(), w.double()
         for loss in LOSSES:
             L, g = lg.linear_value_grad(X, y, w, loss=loss)
+            L2, g2 = lg.linear_value_grad(X, y, w, loss=loss)
             torch.cuda.synchronize()
+            repeat = torch.equal(L, L2) and torch.equal(g, g2)
             L64, g64 = ref.linear_value_grad(X64, y64, w64, loss=loss)
             err_L = abs(float(L) - float(L64))
             err_g = float((g.double() - g64).abs().max())
             g_scale = max(1.0, float(g64.abs().max()))
             ok = (math.isfinite(float(L)) and bool(torch.isfinite(g).all())
                   and err_L <= RTOL_L * abs(float(L64))
-                  and err_g <= TOL_G * g_scale)
+                  and err_g <= TOL_G * g_scale and repeat)
             fns = {"kernel": lambda: lg.linear_value_grad(X, y, w, loss=loss),
                    "plain": lambda: ref.linear_value_grad(X, y, w, loss=loss),
                    "library": lambda: library_pair(torch, X, y, w, loss)}
             row = {"kernel": "linear_value_grad", "shape": label, "n": n,
                    "d": d, "loss": loss, "err_L": err_L,
                    "rel_err_L": err_L / abs(float(L64)), "err_g": err_g,
-                   "rel_err_g": err_g / g_scale,
+                   "rel_err_g": err_g / g_scale, "repeat_bitwise": repeat,
                    **bounds_ms(n, d), "check": "pass" if ok else "FAIL"}
             for k, f in fns.items():
                 t = time_ms(torch, f, spin_rate)
@@ -312,7 +319,8 @@ def kernel_phase(torch, rt) -> dict:
             emit(row)
             if not ok:
                 raise SystemExit(f"linear_value_grad disagrees with its "
-                                 f"float64 plain version at {label}/{loss}")
+                                 f"float64 plain version, or with itself on "
+                                 f"a repeat, at {label}/{loss}")
             if (n, d) == MAIN_SHAPE and loss == "squared_hinge":
                 main = dict(row, max_abs_err=max(err_L, err_g))
         del X, y, X64, y64
@@ -407,21 +415,24 @@ def rglru_kernel_phase(torch, rt) -> dict:
     ops, ref = rt["ops"], rt["ref"]
     gen = torch.Generator(device="cuda").manual_seed(3)
     spin_rate = spin_cycles_per_s(torch)
-    main = None
+    rows = {}
     for label, B, S, W, dnames in RGLRU_SHAPES:
         for dname in dnames:
             a, b = rglru_inputs(torch, gen, B, S, W, getattr(torch, dname))
             y = ops.rglru_scan(a, b)
+            repeat = torch.equal(y, ops.rglru_scan(a, b))
             torch.cuda.synchronize()
             y64 = ref.rglru_scan(a.double(), b.double())
             err = (y.double() - y64).abs()
             max_abs = float(err.max())
             rel = float((err / (1.0 + y64.abs())).max())
             del y64, err
-            ok = bool(torch.isfinite(y).all()) and rel <= RGLRU_TOL[dname]
+            ok = (bool(torch.isfinite(y).all()) and rel <= RGLRU_TOL[dname]
+                  and repeat)
             row = {"kernel": "rglru_scan", "shape": label, "B": B, "S": S,
                    "W": W, "dtype": dname, "max_abs_err": max_abs,
                    "max_rel_err": rel, "tol": RGLRU_TOL[dname],
+                   "repeat_bitwise": repeat,
                    **rglru_bounds_ms(B, S, W, y.element_size()),
                    "library_ms": None, "check": "pass" if ok else "FAIL"}
             for k, t in (
@@ -433,11 +444,12 @@ def rglru_kernel_phase(torch, rt) -> dict:
             emit(row)
             if not ok:
                 raise SystemExit(f"rglru_scan disagrees with its float64 "
-                                 f"plain version at {label}/{dname}: {rel}")
-            if label == RGLRU_SHAPES[0][0] and dname == "bfloat16":
-                main = row
+                                 f"plain version ({rel}), or with itself on "
+                                 f"a repeat ({repeat}), at {label}/{dname}")
+            if dname == "bfloat16":
+                rows[label] = row
             del a, b, y
-    return main
+    return rows
 
 
 def attention_pairs(B: int, S: int, H: int, window: int) -> int:
@@ -1089,7 +1101,8 @@ def main() -> None:
     main_row = kernel_phase(torch, rt)
     scan_rows = scan_kernel_phase(torch, rt)
     scan_row = scan_rows["falcon-mamba-7b"]
-    rglru_row = rglru_kernel_phase(torch, rt)
+    rglru_rows = rglru_kernel_phase(torch, rt)
+    rglru_row = rglru_rows["recurrentgemma-9b"]
     attn_row = attention_kernel_phase(torch, rt)
     # 3. the main paths, each with its own launch counts
     launches = main_path_phase(torch, rt)
@@ -1133,6 +1146,8 @@ def main() -> None:
         "bound_ms": rglru_row["bound_ms"],
         "bound_by": rglru_row["bound_by"], "library_ms": None,
         "call_ms": rglru_row["kernel_call_ms"],
+        "probe_ms": rglru_rows["probe"]["kernel_ms"],
+        "probe_bound_ms": rglru_rows["probe"]["bound_ms"],
         "shape": [rglru_row["B"], rglru_row["S"], rglru_row["W"]],
         "dtype": rglru_row["dtype"], "check": rglru_row["check"]}, {
         "name": "flash_attention", "route": "cuda",

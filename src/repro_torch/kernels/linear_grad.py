@@ -4,10 +4,14 @@ convex hot spot (B1).
 Each inner-optimizer iteration on a window of n points computes
     m = Xw  →  r = ℓ'(y·m)·y  →  g = Xᵀr,  L = Σℓ(y·m).
 Two separate GEMV passes read X twice from device memory; the CUDA kernel
-in ``csrc/linear_grad.cu`` reads it once and uses each row for both the
-forward dot and the transposed accumulation.  This module is its wrapper:
-it checks the inputs, allocates the output and the cross-block scratch
-with ``torch.empty``, and launches on the current stream.  Dispatch by
+in ``csrc/linear_grad.cu`` streams it once, in bulk copies of contiguous
+row tiles into shared memory, and uses each tile for both the forward dot
+and the transposed accumulation; the blocks' partials are summed by a
+fixed-order tree of two levels, each summer the last block to arrive.
+This module is its wrapper: it checks the inputs, allocates the output
+and the per-call scratch (the partials and the tickets, which the launch
+zeroes on the call's stream) with ``torch.empty``, and launches on the
+current stream.  Dispatch by
 device (and the plain version for CPU tensors) lives in ``ops.py``.
 """
 from __future__ import annotations
@@ -32,6 +36,8 @@ def _library() -> ctypes.CDLL:
         lib.lvg_max_d.restype = ctypes.c_int
         lib.lvg_grid.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
         lib.lvg_grid.restype = ctypes.c_int
+        lib.lvg_scratch_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.lvg_scratch_bytes.restype = ctypes.c_longlong
         lib.lvg_launch.argtypes = [ctypes.c_void_p] * 5 + [
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p]
@@ -81,10 +87,11 @@ def linear_value_grad(X, y, w, *, loss: str = "squared_hinge"):
     if grid < 1:
         raise ValueError(f"linear_value_grad kernel takes 1 <= d <= "
                          f"{lib.lvg_max_d()}, got d={d}")
-    partial = torch.empty((grid, d + 1), dtype=torch.float32, device=dev)
+    scratch = torch.empty((lib.lvg_scratch_bytes(d, grid),),
+                          dtype=torch.uint8, device=dev)
     out = torch.empty((d + 1,), dtype=torch.float32, device=dev)
     rc = lib.lvg_launch(X.data_ptr(), y.data_ptr(), w.data_ptr(),
-                        partial.data_ptr(), out.data_ptr(), n, d,
+                        scratch.data_ptr(), out.data_ptr(), n, d,
                         LOSS_CODES[loss], grid,
                         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:

@@ -2,11 +2,14 @@
 scan (B4).
 
 The CUDA kernel in ``csrc/rglru_scan.cu`` runs h_t = a_t·h_{t-1} + b_t
-with one thread per (batch row, channel) and the carry in a float32
-register, and writes each h_t in a's dtype.  This module is its wrapper:
-it checks the inputs, allocates y with ``torch.empty`` and launches on the
-current stream.  Dispatch by device, the plain version for CPU tensors and
-the backward pass live in ``ops.py``.
+as a chunked scan in one pass: a block scans its chunk of 256 steps from
+0, publishes the chunk's (∏a, h) and folds the earlier chunks' in a fixed
+order into its carry-in (float32), then rescans and writes each h_t in
+a's dtype.  This module is its wrapper: it checks the inputs, allocates y
+and the per-call scratch of flags and chunk aggregates with
+``torch.empty`` (the launch zeroes the flags on the call's stream), and
+launches on the current stream.  Dispatch by device, the plain version
+for CPU tensors and the backward pass live in ``ops.py``.
 """
 from __future__ import annotations
 
@@ -25,7 +28,9 @@ def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = build.library("rglru_scan")
-        lib.rglru_scan_launch.argtypes = [ctypes.c_void_p] * 3 + [
+        lib.rglru_scan_scratch_bytes.argtypes = [ctypes.c_int] * 4
+        lib.rglru_scan_scratch_bytes.restype = ctypes.c_longlong
+        lib.rglru_scan_launch.argtypes = [ctypes.c_void_p] * 4 + [
             ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.rglru_scan_launch.restype = ctypes.c_int
         lib.rglru_scan_error_string.argtypes = [ctypes.c_int]
@@ -47,22 +52,25 @@ def _check(a, b) -> None:
                              f"({a.device}), got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if a.shape[0] > 65535:
-        raise ValueError(f"rglru_scan kernel takes B <= 65535, got "
-                         f"{a.shape[0]}")
 
 
 def rglru_scan(a, b):
     """y (B, S, W) in a's dtype, computed by the CUDA kernel.  a and b
     share one shape and dtype (float32 or bfloat16), contiguous, on one
-    CUDA device; B <= 65535."""
+    CUDA device."""
     _check(a, b)
     lib = _library()
     Bsz, S, W = a.shape
+    code = DTYPE_CODES[a.dtype]
+    nbytes = lib.rglru_scan_scratch_bytes(Bsz, S, W, code)
+    if nbytes < 0:
+        raise ValueError(f"rglru_scan kernel: shape {tuple(a.shape)} needs "
+                         f"more blocks than one launch takes")
     y = torch.empty_like(a)
+    scratch = torch.empty((nbytes,), dtype=torch.uint8, device=a.device)
     rc = lib.rglru_scan_launch(
-        a.data_ptr(), b.data_ptr(), y.data_ptr(), Bsz, S, W,
-        DTYPE_CODES[a.dtype], torch.cuda.current_stream(a.device).cuda_stream)
+        a.data_ptr(), b.data_ptr(), y.data_ptr(), scratch.data_ptr(), Bsz, S,
+        W, code, torch.cuda.current_stream(a.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"rglru_scan launch failed: "
                            f"{lib.rglru_scan_error_string(rc).decode()} "

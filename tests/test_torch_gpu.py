@@ -61,6 +61,52 @@ def test_cuda_kernel_takes_row_views_of_the_window():
     assert torch.equal(L, Lc) and torch.equal(g, gc)
 
 
+# the sizes of chip_smoke.py's KERNEL_SHAPES (w8a_like@6, ragged,
+# webspam_like@1, rcv1_like@1, susy_like@64, small)
+KERNEL_SIZES = [(49152, 300), (49189, 300), (16384, 1024), (4096, 2048),
+                (4194304, 18), (200, 32)]
+
+
+@pytest.mark.parametrize("n,d", KERNEL_SIZES)
+def test_cuda_kernel_repeats_bitwise_back_to_back_and_on_two_streams(n, d):
+    """Each call zeroes its own ticket in its own scratch: calls queued back
+    to back, and calls on two streams at once, elect their own last block
+    and give the first call's bits."""
+    _need_card()
+    X, y, w = _inputs(n, d, seed=n % 997 + d)
+    L, g = ops.linear_value_grad(X, y, w, loss="logistic")
+    runs = [ops.linear_value_grad(X, y, w, loss="logistic") for _ in range(3)]
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            runs.append(ops.linear_value_grad(X, y, w, loss="logistic"))
+    torch.cuda.synchronize()
+    for L2, g2 in runs:
+        assert torch.equal(L, L2) and torch.equal(g, g2)
+
+
+@pytest.mark.parametrize("d", [18, 300])
+def test_cuda_kernel_takes_rows_that_start_off_a_16_byte_boundary(d):
+    """X may start anywhere on a 4-byte boundary (a row view at d = 18,
+    whose rows are 72 bytes; any tensor at an odd float offset); the bulk
+    copies cover the 16-byte granules around each tile and the threads
+    skip the bytes before it, so such an X gives the bits of an aligned
+    copy (the same tiles, the same sums)."""
+    _need_card()
+    n = 4001
+    X, y, w = _inputs(n + 1, d, seed=d)
+    flat = X.reshape(-1)
+    views = [flat[k:k + n * d].view(n, d) for k in (1, 2, 3)]
+    if d == 18:
+        views.append(X[1:])
+    for view in views:
+        assert view.data_ptr() % 16
+        L, g = ops.linear_value_grad(view, y[:n], w)
+        Lc, gc = ops.linear_value_grad(view.clone(), y[:n].clone(), w)
+        assert torch.equal(L, Lc) and torch.equal(g, gc)
+
+
 def test_cuda_kernel_refuses_what_it_does_not_take():
     _need_card()
     X = torch.zeros((8, 4096), device="cuda")
@@ -276,6 +322,68 @@ def test_rglru_scan_kernel_matches_float64_plain_version(B, S, W, dtype):
     assert bool(torch.isfinite(y).all())
     assert float(err.max()) <= RGLRU_TOL[dtype]
     assert torch.equal(y, ops.rglru_scan(a, b))          # deterministic
+
+
+# the chunked kernel's edges: S one below, at and one above its 256-step
+# chunk, one step, and one past the path's 4096; W a multiple of a 16-byte
+# vector and not (one element at a time)
+@pytest.mark.parametrize("S", [255, 256, 257, 4097, 1])
+@pytest.mark.parametrize("W", [4096 + 40, 37])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_scan_kernel_chunk_edges(S, W, dtype):
+    _need_card()
+    a, b = _rglru_inputs(2, S, W, seed=S + W, dtype=dtype)
+    y = ops.rglru_scan(a, b)
+    torch.cuda.synchronize()
+    y64 = ref.rglru_scan(a.double(), b.double())
+    err = (y.double() - y64).abs() / (1.0 + y64.abs())
+    assert bool(torch.isfinite(y).all())
+    assert float(err.max()) <= RGLRU_TOL[dtype]
+    assert torch.equal(y, ops.rglru_scan(a, b))
+
+
+@pytest.mark.parametrize("W", [64, 37])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_scan_carry_crosses_every_chunk_unchanged(W, dtype):
+    """a = 1: y is the prefix sum of b.  With b small integers every sum is
+    exact in the float32 carry, so the kernel's y must equal the exact
+    prefix sum rounded to the dtype, bit for bit, across all 17 chunks of
+    S = 4097 — a carry that is dropped, doubled or folded out of order
+    shows at once."""
+    _need_card()
+    rng = np.random.default_rng(W)
+    b = torch.from_numpy(rng.integers(-4, 5, (2, 4097, W)).astype(np.float32))
+    b = b.cuda().to(dtype)
+    a = torch.ones_like(b)
+    y = ops.rglru_scan(a, b)
+    assert torch.equal(y, torch.cumsum(b.double(), dim=1).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_scan_zero_decay_forgets_the_carry(dtype):
+    """a = 0: h_t = b_t, whatever came before (and A, the chunks' product,
+    is 0: the carry-in drops out without a NaN)."""
+    _need_card()
+    _, b = _rglru_inputs(2, 1000, 4096 + 40, seed=7, dtype=dtype)
+    assert torch.equal(ops.rglru_scan(torch.zeros_like(b), b), b)
+
+
+def test_rglru_scan_two_streams_at_once_keep_their_own_scratch():
+    """Two calls in flight at once on two streams, each with its own flags
+    and aggregates, give the bits each gives alone."""
+    _need_card()
+    inputs = [_rglru_inputs(2, 2048, 4096, seed=s, dtype=torch.bfloat16)
+              for s in (1, 2)]
+    alone = [ops.rglru_scan(a, b) for a, b in inputs]
+    streams = [torch.cuda.Stream() for _ in inputs]
+    together = []
+    for s, (a, b) in zip(streams, inputs):
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            together.append(ops.rglru_scan(a, b))
+    torch.cuda.synchronize()
+    for y, y2 in zip(alone, together):
+        assert torch.equal(y, y2)
 
 
 def test_rglru_scan_grad_on_card_matches_plain_autograd():

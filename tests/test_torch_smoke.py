@@ -42,3 +42,31 @@ def test_breakdown_finds_one_kernel_node_per_layer(arch, node, layer_type):
     want = list(cfg.layer_types()).count(layer_type)
     assert want >= 1
     assert names.count(node) == want
+
+
+def test_kernel_compare_diff_counts_elements_and_ulps(tmp_path, capsys):
+    """``kernel_compare.py diff``, which PERF.md's old-against-new kernel
+    counts come from: a bfloat16 output with one element one ulp up, one
+    element many ulps off near 0 and one sign flipped."""
+    import json
+
+    from repro_torch.launch import kernel_compare
+    a, b = tmp_path / "a", tmp_path / "b"
+    a.mkdir(), b.mkdir()
+    x = torch.tensor([1.0, 2.0, 1e-6, 3.0, 4.0], dtype=torch.bfloat16)
+    y = x.clone()
+    y.view(torch.int16)[1] += 1                  # 2.0 -> next bfloat16
+    y[2] = 3e-6
+    y[3] = -3.0
+    torch.save(x, a / "rglru_path_bfloat16.pt")
+    torch.save(y, b / "rglru_path_bfloat16.pt")
+    torch.save(torch.ones(3), a / "lvg_logistic.pt")
+    torch.save(torch.ones(3), b / "lvg_logistic.pt")
+    kernel_compare.diff(a, b)
+    rows = {r["output"]: r for r in map(json.loads,
+                                         capsys.readouterr().out.splitlines())}
+    assert rows["lvg_logistic"]["differ"] == 0
+    r = rows["rglru_path_bfloat16"]
+    assert (r["differ"], r["one_ulp"], r["over_one_ulp"],
+            r["sign_differs"]) == (3, 1, 1, 1)
+    assert r["over_one_ulp_max_abs_value"] < 1e-5
