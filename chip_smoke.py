@@ -18,25 +18,44 @@ the script with a non-zero exit and no result line:
     where one PyTorch call computes the same function.  One JSON line per
     shape.  B1 (linear_value_grad), B3 (ssm_scan), B4 (rglru_scan) — the
     scans' plain versions timed as CUDA graph replays (graph_ms) — and B2
-    (flash_attention).  B1 and B4, whose blocks meet through a per-call
-    scratch, must also repeat their bits on a second call.
+    (flash_attention).  Each must also repeat its bits on a second call
+    (B1 and B4, whose blocks meet through a per-call scratch, and B2 and
+    B3, whose outputs the rematerialized LM steps compute twice).
  3. main paths — ``repro_torch.api.build(spec, device="cuda").run()``,
     each path with the launch counts zeroed just before it and read just
     after:
     a. convex: the quickstart spec (examples/quickstart.py) at scale 6,
        two-track then batch; linear_value_grad launches exactly once per
        optimizer step the traces and the race overshoot imply;
+    a'. the convex method set on the same problem, each run a path of its
+       own: two-track with nonlinear CG, L-BFGS and AdamW; the
+       gradient-variance policy, alone and as a veto of two-track
+       (Newton-CG); DSM; mini-batch Adagrad.  One line each (wall s,
+       stages, steps, host transfers, launches against the trace's
+       count), each held against the same run on the CPU (columns equal,
+       f̂ within rtol 1e-4); then the reference benchmarks' method set
+       (``repro_torch.launch.methods``) on its six fixtures;
     b. LM: falcon-mamba-7b at its full published width, depth cut to 4
        layers, two-track (launch/train.py's spec); ssm_scan launches
        num_layers times per forward pass the trace and the race
-       overshoot imply; at most ⌈log₂ s⌉ host transfers per racing stage
-       of s steps; f̂ on the eval probe falls; one line per stage;
+       overshoot imply (a train step is two: its forward and the
+       rematerialization in its backward); at most ⌈log₂ s⌉ host
+       transfers per racing stage of s steps; f̂ on the eval probe falls;
+       one line per stage;
     c. hybrid LM: recurrentgemma-9b at its full published width, depth
        cut to one (rec, rec, attn) super-block, under fixed_steps
        (launch/train.py's default schedule) on sequences of 4,096 tokens,
        longer than its 2,048 local window; rglru_scan launches twice and
-       flash_attention once per forward pass the trace implies; f̂ falls;
-       one line per stage, the peak memory, a train step taken apart.
+       flash_attention once per forward pass the trace implies (three a
+       step: the train step's, its rematerialization, the f̂ probe's); f̂
+       falls; one line per stage, the peak memory.
+    For each LM, after its run: one full-width train step's loss and
+    gradients with ``remat`` on, on again and off (the loss chunks are
+    rematerialized either way, as in the reference), held bitwise, with
+    each phase's peak memory; then a train step taken apart (forward,
+    backward with the rematerialization timed apart from the kernels'
+    plain VJPs, AdamW, each with its peak memory).  The checks of these
+    and of phase 3a' fail the run at its end, after every line is out.
  4. card against CPU — the convex workload, and the reduced LMs (mamba
     and hybrid) in float32, under fixed_steps on the card and on the CPU
     (plain versions): clock and access columns equal, f̂ within rtol 1e-4.
@@ -45,6 +64,7 @@ Then the ``{"kernels": [...]}`` line, and last ``{"ok": true, ...}``.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -91,9 +111,12 @@ SCAN_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 SFU_EXP_S = 132 * 16 * 1.98e9
 
 MAIN_SHAPE = (49152, 300)       # w8a_like at scale 6: the main path's full window
-# (label, n, d, how the data is made)
+# (label, n, d, how the data is made: a loaded set's first n rows, or
+# random); Adagrad's mini-batch and a DSM sample have the main path's width
 KERNEL_SHAPES = [
     ("w8a_like@6", 49152, 300, ("load", "w8a_like", 6.0)),
+    ("adagrad_batch", 64, 300, ("load", "w8a_like", 6.0)),
+    ("dsm_sample", 512, 300, ("load", "w8a_like", 6.0)),
     ("ragged", 49189, 300, ("randn",)),
     ("webspam_like@1", 16384, 1024, ("load", "webspam_like", 1.0)),
     ("rcv1_like@1", 4096, 2048, ("load", "rcv1_like", 1.0)),
@@ -166,6 +189,16 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+# checks that fail the run at its end, after every phase has printed its
+# lines (each is also printed where it fails)
+FAILED: list = []
+
+
+def fail_later(message: str) -> None:
+    emit({"check_failed": message})
+    FAILED.append(message)
+
+
 def spin_cycles_per_s(torch) -> float:
     """The rate of ``torch.cuda._sleep``'s spin loop, from CUDA events."""
     start = torch.cuda.Event(enable_timing=True)
@@ -202,7 +235,9 @@ def time_ms(torch, fn, spin_rate: float, iters: int = 30) -> dict:
     torch.cuda.synchronize()
     host_s = time.perf_counter() - t0
     call_ms = start.elapsed_time(end) / iters
-    spin_s = 2.0 * host_s + 0.005       # outlasts the enqueue with room
+    # outlasts the enqueue with room: a few-microsecond kernel's 30 calls
+    # enqueue in ~1 ms, and the host's jitter can triple that
+    spin_s = 4.0 * host_s + 0.05
     torch.cuda._sleep(int(spin_rate * spin_s))
     start.record()
     t0 = time.perf_counter()
@@ -284,7 +319,7 @@ def kernel_phase(torch, rt) -> dict:
     for label, n, d, how in KERNEL_SHAPES:
         if how[0] == "load":
             ds = synthetic.load(how[1], scale=how[2], device="cuda")
-            X, y = ds.X, ds.y
+            X, y = ds.X[:n], ds.y[:n]
             if tuple(X.shape) != (n, d):
                 raise SystemExit(f"{label}: generator gave {tuple(X.shape)}")
         else:
@@ -365,15 +400,18 @@ def scan_kernel_phase(torch, rt) -> dict:
             dtype = getattr(torch, dname)
             args = scan_inputs(torch, gen, B, S, di, N, dtype)
             y = ops.ssm_scan(*args)
+            differ = int((y != ops.ssm_scan(*args)).sum())
             torch.cuda.synchronize()
             y64 = ref.ssm_scan(*(a.double() for a in args))
             err = (y.double() - y64).abs()
             max_abs = float(err.max())
             rel = float((err / (1.0 + y64.abs())).max())
-            ok = bool(torch.isfinite(y).all()) and rel <= SCAN_TOL[dname]
+            ok = (bool(torch.isfinite(y).all()) and rel <= SCAN_TOL[dname]
+                  and differ == 0)
             row = {"kernel": "ssm_scan", "shape": label, "B": B, "S": S,
                    "di": di, "N": N, "dtype": dname, "max_abs_err": max_abs,
                    "max_rel_err": rel, "tol": SCAN_TOL[dname],
+                   "repeat_bitwise": differ == 0, "repeat_differ": differ,
                    **scan_bounds_ms(B, S, di, N, y.element_size()),
                    "library_ms": None, "check": "pass" if ok else "FAIL"}
             for k, t in (
@@ -384,7 +422,9 @@ def scan_kernel_phase(torch, rt) -> dict:
             emit(row)
             if not ok:
                 raise SystemExit(f"ssm_scan disagrees with its float64 plain "
-                                 f"version at {label}/{dname}: {rel}")
+                                 f"version ({rel}), or with itself on a "
+                                 f"repeat ({differ} elements), at "
+                                 f"{label}/{dname}")
             if dname == "bfloat16" and label in ("falcon-mamba-7b",
                                                  "probe"):
                 rows[label] = row
@@ -509,17 +549,21 @@ def attention_kernel_phase(torch, rt) -> dict:
                                device="cuda").to(dtype)
                    for n in (H, KV, KV))
         o = ops.flash_attention(q, k, v, causal=True, window=window)
+        differ = int((o != ops.flash_attention(q, k, v, causal=True,
+                                               window=window)).sum())
         torch.cuda.synchronize()
         o64 = attention64(torch, ref, q, k, v, window)
         err = (o.double() - o64).abs()
         max_abs = float(err.max())
         rel = float((err / (1.0 + o64.abs())).max())
         del o64, err
-        ok = bool(torch.isfinite(o).all()) and rel <= ATTN_TOL[dname]
+        ok = (bool(torch.isfinite(o).all()) and rel <= ATTN_TOL[dname]
+              and differ == 0)
         row = {"kernel": "flash_attention", "shape": label, "B": B, "S": S,
                "H": H, "KV": KV, "hd": hd, "window": window, "dtype": dname,
                "max_abs_err": max_abs, "max_rel_err": rel,
-               "tol": ATTN_TOL[dname],
+               "tol": ATTN_TOL[dname], "repeat_bitwise": differ == 0,
+               "repeat_differ": differ,
                **attention_bounds_ms(B, S, H, KV, hd, window, dname),
                "check": "pass" if ok else "FAIL"}
         fns = {"kernel": lambda: ops.flash_attention(q, k, v, window=window)}
@@ -537,7 +581,8 @@ def attention_kernel_phase(torch, rt) -> dict:
         emit(row)
         if not ok:
             raise SystemExit(f"flash_attention disagrees with its float64 "
-                             f"plain version at {label}: {rel}")
+                             f"plain version ({rel}), or with itself on a "
+                             f"repeat ({differ} elements), at {label}")
         if label == ATTN_SHAPES[0][0]:
             main = row
         if label == "probe":
@@ -548,8 +593,8 @@ def attention_kernel_phase(torch, rt) -> dict:
     return main
 
 
-def quickstart_specs(api):
-    data = api.DataSpec(dataset="w8a_like", scale=6.0, lam=1e-3)
+def quickstart_specs(api, scale: float = 6.0):
+    data = api.DataSpec(dataset="w8a_like", scale=scale, lam=1e-3)
     base = dict(data=data,
                 optimizer=api.OptimizerSpec("newton_cg",
                                             {"hessian_fraction": 0.2}),
@@ -590,9 +635,7 @@ def main_path_phase(torch, rt) -> int:
     # two launches per race step (the steps run past a trigger and
     # discarded included), one per final-phase and batch step
     overshoot = sum(tr.meta["race_overshoot"] for tr in traces.values())
-    implied = sum(2 if "f_fast_on_t" in p.extra else 1
-                  for tr in traces.values() for p in tr.points) \
-        + 2 * overshoot
+    implied = sum(rt["methods"].kernel_calls(tr) for tr in traces.values())
     for name, sess in sessions.items():
         tr = traces[name]
         row = {"run": name, "stages": tr.meta["stages"],
@@ -654,6 +697,111 @@ def card_vs_cpu_phase(torch, rt) -> None:
     if not rel <= RTOL_F:
         raise SystemExit(f"fixed_steps f_full card/CPU rel diff {rel} > "
                          f"{RTOL_F}")
+
+
+def method_runs(rt, scale: float = 6.0) -> dict:
+    """The convex method set on quickstart@6 (49,152 x 300; ``scale``
+    sets another size): name -> run(device) -> trace.  Two-track with the
+    other inner optimizers (AdamW at lr 0.01: the reference's default
+    3e-4 barely moves a convex problem), the gradient-variance policy
+    (its defaults: θ 0.5, probe 256) alone and as a veto of two-track,
+    with quickstart's Newton-CG; DSM and mini-batch Adagrad with the
+    reference benchmarks' settings (``run_method``: θ 0.2, 30 DSM steps
+    from 300 rows; 1,200 Adagrad steps of 64 rows at lr 0.5)."""
+    api, methods = rt["api"], rt["methods"]
+    data, base = quickstart_specs(api, scale)
+    two_track = api.PolicySpec("two_track", {"final_steps": 20})
+
+    def spec(policy, optimizer=base["optimizer"]):
+        s = api.RunSpec(policy=policy, **dict(base, optimizer=optimizer))
+        return lambda device: api.build(s, device=device).run()
+
+    def baseline(method):
+        def run(device):
+            ds, objective, w0 = api.convex_problem(data, device=device)
+            return methods.run_method(method, ds, objective, w0)
+        return run
+
+    return {
+        "two_track/cg": spec(two_track, api.OptimizerSpec("cg")),
+        "two_track/lbfgs": spec(two_track, api.OptimizerSpec("lbfgs")),
+        "two_track/adamw": spec(two_track,
+                                api.OptimizerSpec("adamw", {"lr": 0.01})),
+        "gradient_variance/newton_cg": spec(
+            api.PolicySpec("gradient_variance", {"final_steps": 20})),
+        "two_track+gradient_variance/newton_cg": spec(api.PolicySpec(
+            "two_track", {"final_steps": 20},
+            veto=(api.PolicySpec("gradient_variance"),))),
+        "dsm/newton_cg": baseline("dsm"),
+        "minibatch/adagrad": baseline("adagrad"),
+    }
+
+
+def convex_methods_phase(torch, rt) -> int:
+    """Each run of ``method_runs`` on the card, its linear_value_grad
+    launches counted from 0 and held to the calls its trace implies, then
+    the same run on the CPU: the step, stage, window, clock and access
+    columns and the host transfers equal, f̂ at every point within
+    RTOL_F.  Then ``repro_torch.launch.methods``' set on the card, each
+    run's launches held likewise.  Returns the launches of the runs."""
+    ops, methods = rt["ops"], rt["methods"]
+    total = 0
+    for name, run in method_runs(rt).items():
+        torch.cuda.synchronize()
+        ops.reset_calls()
+        t0 = time.perf_counter()
+        gpu = run("cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.CALLS["linear_value_grad"]
+        implied = methods.kernel_calls(gpu)
+        t0 = time.perf_counter()
+        cpu = run("cpu")
+        cpu_wall = time.perf_counter() - t0
+        cols = ("step", "stage", "window", "time", "accesses")
+        equal = [c for c in cols if gpu.column(c) != cpu.column(c)]
+        f_gpu = np.array(gpu.column("f_full"))
+        f_cpu = np.array(cpu.column("f_full"))
+        rel = (float(np.max(np.abs(f_gpu - f_cpu) / np.abs(f_cpu)))
+               if len(f_gpu) == len(f_cpu) else float("inf"))
+        stages = gpu.column("stage")
+        row = {"path": "convex_methods", "run": name,
+               "stages": len(set(stages)),
+               "steps_per_stage": [stages.count(s)
+                                   for s in sorted(set(stages))],
+               "steps": gpu.final().step + 1,
+               "host_transfers": gpu.meta["host_transfers"],
+               "race_overshoot": gpu.meta.get("race_overshoot", 0),
+               "linear_value_grad_launches": launches,
+               "implied_launches": implied, "wall_s": wall,
+               "sim_time": gpu.final().time,
+               "data_accesses": gpu.final().accesses,
+               "f_full": gpu.final().f_full, "cpu_wall_s": cpu_wall,
+               "columns_differ": equal, "max_rel_f_full": rel,
+               "cpu_host_transfers": cpu.meta["host_transfers"]}
+        emit(row)
+        if not finite(gpu):
+            fail_later(f"{name}: non-finite values in the trace")
+        if launches != implied:
+            fail_later(f"{name}: linear_value_grad launched {launches} "
+                       f"times, the trace implies {implied}")
+        if equal or not rel <= RTOL_F or \
+                gpu.meta["host_transfers"] != cpu.meta["host_transfers"]:
+            fail_later(f"{name}: card and CPU differ (columns {equal}, "
+                       f"f_full rel {rel} against {RTOL_F}, transfers "
+                       f"{gpu.meta['host_transfers']} and "
+                       f"{cpu.meta['host_transfers']})")
+        total += launches
+    for row in methods.run_set("cuda"):
+        launches = ops.CALLS["linear_value_grad"]     # counted from 0
+        emit({"path": "methods", **row})
+        if launches != row["kernel_calls_implied"] \
+                or not math.isfinite(row["f_full"]):
+            fail_later(f"methods {row['fixture']}/{row['method']}: "
+                       f"{launches} launches against "
+                       f"{row['kernel_calls_implied']} implied, "
+                       f"f_full {row['f_full']}")
+    return total
 
 
 def lm_spec(api, *, arch: str = "falcon-mamba-7b", reduced: bool, policy,
@@ -757,12 +905,14 @@ def lm_main_path_phase(torch, rt) -> dict:
     overshoot = tr.meta["race_overshoot"]
     # a race step: a train step on each track, then f̂_t of the fast track
     # and f̂ of the slow one, plus f̂_t of the slow one under "eval"; a
-    # final step: a train step, plus f̂ when final_eval_full
+    # final step: a train step, plus f̂ when final_eval_full.  A train
+    # step is two forward passes: its own and, in its backward, the
+    # rematerialization of every layer
     race_evals = 3 if pol.condition == "eval" else 2
     final_evals = 1 if pol.final_eval_full else 0
     train_steps = 2 * (race + overshoot) + final
     evals = race_evals * (race + overshoot) + final_evals * final
-    implied = cfg.num_layers * (train_steps + evals)
+    implied = cfg.num_layers * (2 * train_steps + evals)
     values = (tr.column("f_window") + tr.column("f_full")
               + [p.extra["f_fast_on_t"] for p in tr.points
                  if "f_fast_on_t" in p.extra])
@@ -812,73 +962,136 @@ def graph_nodes(loss) -> set:
     return seen
 
 
+def recompute_timer(sync):
+    """A ``context_fn`` for the model's rematerialized regions
+    (``transformer.REMAT_CONTEXT``) that times each region's
+    recomputation inside the backward on the host clock, ended by
+    ``sync``; returns it with the totals it fills ({"s", "regions"})."""
+    totals = {"s": 0.0, "regions": 0}
+
+    @contextlib.contextmanager
+    def recomputing():
+        sync()
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            sync()
+            totals["s"] += time.perf_counter() - t0
+            totals["regions"] += 1
+
+    return (lambda: (contextlib.nullcontext(), recomputing())), totals
+
+
+def hook_vjps(loss, node_names: dict, seg: dict, sync, recompute) -> list:
+    """A pre-hook and a hook on each node of ``loss``'s autograd graph
+    named in ``node_names`` ({part: node name}): each node's time in the
+    backward, from the pre-hook to the hook, both ended by ``sync``, less
+    the recomputation that ran inside it (``recompute``, the totals of
+    ``recompute_timer``), adds to ``seg["<part>_vjp_in_backward_s"]``;
+    ``seg["<part>_vjp_nodes"]`` counts the nodes that ran.  Returns the
+    handles."""
+    handles = []
+    for node in graph_nodes(loss):
+        for part, node_name in node_names.items():
+            if node.name() != node_name:
+                continue
+            start = []
+
+            def pre(_, start=start):
+                sync()
+                start.append((time.perf_counter(), recompute["s"]))
+
+            def post(_, __, part=part, start=start):
+                sync()
+                t0, r0 = start.pop()
+                key = f"{part}_vjp_in_backward_s"
+                seg[key] = seg.get(key, 0.0) + time.perf_counter() - t0 \
+                    - (recompute["s"] - r0)
+                seg[f"{part}_vjp_nodes"] = seg.get(f"{part}_vjp_nodes", 0) + 1
+
+            handles += [node.register_prehook(pre), node.register_hook(post)]
+    return handles
+
+
+def remat_regions(cfg, seq_len: int) -> int:
+    """The regions a train step rematerializes: each layer of a
+    homogeneous stack or each whole super-block of a hybrid, and each
+    cross-entropy chunk (of 512 tokens, or the sequence if shorter)."""
+    if cfg.family == "hybrid":
+        pat = cfg.block_pattern or ("rec", "rec", "attn")
+        blocks = cfg.num_layers // len(pat)
+    else:
+        blocks = cfg.num_layers
+    return blocks + seq_len // min(512, seq_len)
+
+
 def step_breakdown(torch, rt, sess, params, batch_size: int, path: str,
                    parts: dict) -> dict:
-    """Where a train step's time goes: host-clock segments, each ended by
-    a synchronize, of one step taken apart (forward with the graph, the
-    backward, the AdamW update), one f̂ probe, and each kernel's share of
-    the forward and of the backward.  ``parts`` maps a name to (inputs,
-    kernel call, calls per step, its autograd node's name): the kernel
-    forward is timed alone at the path's shape; its plain-version VJP is
-    timed inside the step's backward, from a pre-hook to a hook on each
-    of its nodes, both ended by a synchronize.  Taken after the main
-    path's counts were read; the launches here are not counted there."""
+    """Where a train step's time and memory go: host-clock segments, each
+    ended by a synchronize, of one step taken apart (forward with the
+    graph, the backward, the AdamW update), one f̂ probe, and each
+    kernel's share of the forward and of the backward; the peak memory of
+    the forward, the backward and the update, each read after its own
+    ``reset_peak_memory_stats``.  ``parts`` maps a name to (inputs, kernel
+    call, calls per step, its autograd node's name): the kernel forward is
+    timed alone at the path's shape; its plain-version VJP is timed inside
+    the step's backward by hooks on each of its nodes, and the
+    rematerialization of each region inside the backward is timed apart
+    and taken out of the VJP that holds it (``hook_vjps``).  Taken after
+    the main path's counts were read; the launches here are not counted
+    there."""
     T, adam, tree_map = rt["transformer"], rt["adam"], rt["tree_map"]
     cfg = sess.model_config
     rows = sess.dataset.window(batch_size)
     batch = {"tokens": rows[:, :-1], "labels": rows[:, 1:]}
     opt_state = adam.adamw_init(params)
     seg = {}
+    sync = torch.cuda.synchronize
 
     def timed(name, fn):
-        torch.cuda.synchronize()
+        sync()
         t0 = time.perf_counter()
         out = fn()
-        torch.cuda.synchronize()
+        sync()
         seg[name] = seg.get(name, 0.0) + time.perf_counter() - t0
         return out
 
-    def hook_vjps(loss) -> list:
-        handles = []
-        for node in graph_nodes(loss):
-            for name, (_, _, _, node_name) in parts.items():
-                if node.name() != node_name:
-                    continue
-                start = []
+    def peak(name):
+        seg[f"{name}_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
 
-                def pre(_, start=start):
-                    torch.cuda.synchronize()
-                    start.append(time.perf_counter())
-
-                def post(_, __, name=name, start=start):
-                    torch.cuda.synchronize()
-                    key = f"{name}_vjp_in_backward_s"
-                    seg[key] = seg.get(key, 0.0) \
-                        + time.perf_counter() - start.pop()
-                    seg[f"{name}_vjp_nodes"] = \
-                        seg.get(f"{name}_vjp_nodes", 0) + 1
-
-                handles += [node.register_prehook(pre),
-                            node.register_hook(post)]
-        return handles
-
+    node_names = {name: v[3] for name, v in parts.items()}
+    saved_context = T.REMAT_CONTEXT
     for rep in range(2):                # the first is a warm-up
         seg.clear()
-        p = tree_map(lambda x: x.detach().requires_grad_(True), params)
-        with torch.enable_grad():
-            loss = timed("forward_s", lambda: T.loss_fn(
-                cfg, p, batch, impl="pallas")[0])
-            leaves = rt["tree_leaves"](p)
-            handles = hook_vjps(loss)
-            flat = timed("backward_s",
-                         lambda: torch.autograd.grad(loss, leaves))
-            for h in handles:
-                h.remove()
+        context_fn, recompute = recompute_timer(sync)
+        T.REMAT_CONTEXT = context_fn
+        try:
+            p = tree_map(lambda x: x.detach().requires_grad_(True), params)
+            with torch.enable_grad():
+                torch.cuda.reset_peak_memory_stats()
+                loss = timed("forward_s", lambda: T.loss_fn(
+                    cfg, p, batch, impl="pallas")[0])
+                peak("forward")
+                leaves = rt["tree_leaves"](p)
+                handles = hook_vjps(loss, node_names, seg, sync, recompute)
+                torch.cuda.reset_peak_memory_stats()
+                flat = timed("backward_s",
+                             lambda: torch.autograd.grad(loss, leaves))
+                peak("backward")
+                for h in handles:
+                    h.remove()
+        finally:
+            T.REMAT_CONTEXT = saved_context
+        seg["recompute_in_backward_s"] = recompute["s"]
+        seg["recompute_regions"] = recompute["regions"]
         it = iter(flat)
         grads = tree_map(lambda _: next(it), p)
         del p, loss, flat
+        torch.cuda.reset_peak_memory_stats()
         timed("adamw_s", lambda: adam.adamw_update(
             params, grads, opt_state, lr=3e-4, weight_decay=0.1))
+        peak("adamw")
         del grads
         timed("probe_s", lambda: sess.objective(params, sess.eval_data))
         for name, (inputs, call, _, _) in parts.items():
@@ -886,7 +1099,13 @@ def step_breakdown(torch, rt, sess, params, batch_size: int, path: str,
             timed(f"{name}_forward_s", lambda: call(*args))
             del args
     out = {"path": path, "breakdown": "one train step", **seg,
-           "layers": cfg.num_layers}
+           "layers": cfg.num_layers,
+           "recompute_share_of_backward":
+               seg["recompute_in_backward_s"] / seg["backward_s"]}
+    regions = remat_regions(cfg, batch["tokens"].shape[1])
+    if seg["recompute_regions"] != regions:
+        fail_later(f"{path} breakdown: {seg['recompute_regions']} regions "
+                   f"recomputed in the backward, the model has {regions}")
     for name, (_, _, count, _) in parts.items():
         if seg.get(f"{name}_vjp_nodes") != count:
             raise SystemExit(f"{path} breakdown: {count} {name} calls a "
@@ -901,6 +1120,75 @@ def step_breakdown(torch, rt, sess, params, batch_size: int, path: str,
     return out
 
 
+def leaf_names(tree, prefix: str = "") -> list:
+    """The paths of a nested dict's leaves, in ``tree_leaves`` order."""
+    out = []
+    for k, v in tree.items():
+        out += leaf_names(v, f"{prefix}{k}/") if isinstance(v, dict) \
+            else [prefix + k]
+    return out
+
+
+def remat_bitwise(torch, rt, sess, params, batch_size: int,
+                  path: str) -> dict:
+    """One full-width train step's loss and gradients from ``params`` on
+    the path's first batch with ``remat`` on, on again, and off: the
+    second run with remat and the run without are each held bitwise
+    against the first (the differing elements counted by leaf otherwise).
+    The host-clock time and the peak memory of each forward and backward
+    are read after their own ``reset_peak_memory_stats``; the parameters
+    and the first run's gradients are alive throughout."""
+    T, tree_map = rt["transformer"], rt["tree_map"]
+    cfg = sess.model_config
+    rows = sess.dataset.window(batch_size)
+    batch = {"tokens": rows[:, :-1], "labels": rows[:, 1:]}
+    names = leaf_names(params)
+    out = {"path": path, "check": "remat_on_against_off"}
+    first = None
+    for key, remat in (("remat_on", True), ("remat_on_again", True),
+                       ("remat_off", False)):
+        p = tree_map(lambda x: x.detach().requires_grad_(True), params)
+        with torch.enable_grad():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss = T.loss_fn(cfg, p, batch, impl="pallas", remat=remat)[0]
+            torch.cuda.synchronize()
+            out[f"{key}_forward_s"] = time.perf_counter() - t0
+            out[f"{key}_forward_peak_gb"] = \
+                torch.cuda.max_memory_allocated() / 1e9
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            grads = torch.autograd.grad(loss, rt["tree_leaves"](p))
+            torch.cuda.synchronize()
+            out[f"{key}_backward_s"] = time.perf_counter() - t0
+            out[f"{key}_backward_peak_gb"] = \
+                torch.cuda.max_memory_allocated() / 1e9
+        del p
+        if first is None:
+            first = (loss.detach(), grads)
+            out.update(loss=float(first[0]), gradient_elements=sum(
+                g.numel() for g in grads))
+        else:
+            differ = {n: int((a != b).sum())
+                      for n, a, b in zip(names, first[1], grads)}
+            out[f"{key}_loss_equal"] = torch.equal(first[0], loss)
+            out[f"{key}_elements_differ"] = sum(differ.values())
+            out[f"{key}_leaves_differ"] = {n: c for n, c in differ.items()
+                                           if c}
+        del loss, grads
+    emit(out)
+    for key in ("remat_on_again", "remat_off"):
+        if not out[f"{key}_loss_equal"] or out[f"{key}_elements_differ"]:
+            fail_later(f"{path}: {key} differs from remat_on (loss equal "
+                       f"{out[f'{key}_loss_equal']}, gradient elements "
+                       f"{out[f'{key}_leaves_differ']})")
+    del first
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def lm_step_breakdown(torch, rt, sess, params) -> None:
     cfg = sess.model_config
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -909,6 +1197,7 @@ def lm_step_breakdown(torch, rt, sess, params) -> None:
                                           cfg.dtype),
                       rt["ops"].ssm_scan, cfg.num_layers,
                       "_SSMScanBackward")}
+    remat_bitwise(torch, rt, sess, params, LM_BATCH, "lm")
     step_breakdown(torch, rt, sess, params, LM_BATCH, "lm", parts)
 
 
@@ -942,8 +1231,10 @@ def hybrid_main_path_phase(torch, rt) -> dict:
     peak = torch.cuda.max_memory_allocated()
     peak_reserved = torch.cuda.max_memory_reserved()
     rows = stage_lines(sess, tr, stamps, f0, t0, "hybrid")
-    # fixed_steps: a train step and an f̂ probe (eval_full) per step
-    passes = 2 * len(tr.points)
+    # fixed_steps: a train step (its forward pass and the
+    # rematerialization of its super-block in its backward) and an f̂
+    # probe (eval_full) per step
+    passes = 3 * len(tr.points)
     types = cfg.layer_types()
     implied = {"rglru_scan": types.count("rec") * passes,
                "flash_attention": types.count("attn") * passes}
@@ -991,6 +1282,8 @@ def hybrid_main_path_phase(torch, rt) -> dict:
                                                 window=cfg.local_window),
             types.count("attn"), "_FlashAttentionBackward"),
     }
+    summary["remat"] = remat_bitwise(torch, rt, sess, params, HY_BATCH,
+                                     "hybrid")
     summary["breakdown"] = step_breakdown(torch, rt, sess, params, HY_BATCH,
                                           "hybrid", parts)
     del sess, params
@@ -1068,13 +1361,15 @@ def main() -> None:
     from repro_torch import api
     from repro_torch.data import synthetic
     from repro_torch.kernels import build, linear_grad, ops, ref
+    from repro_torch.launch import methods
     from repro_torch.models import linear
     from repro_torch.models import transformer
     from repro_torch.optim import adam
     from repro_torch.optim.api import tree_leaves, tree_map
     rt = dict(api=api, synthetic=synthetic, linear_grad=linear_grad,
               ops=ops, ref=ref, linear=linear, transformer=transformer,
-              adam=adam, tree_map=tree_map, tree_leaves=tree_leaves)
+              adam=adam, tree_map=tree_map, tree_leaves=tree_leaves,
+              methods=methods)
 
     # 1. environment
     smi = subprocess.run(
@@ -1106,18 +1401,24 @@ def main() -> None:
     attn_row = attention_kernel_phase(torch, rt)
     # 3. the main paths, each with its own launch counts
     launches = main_path_phase(torch, rt)
+    method_launches = convex_methods_phase(torch, rt)
     lm = lm_main_path_phase(torch, rt)
     hybrid = hybrid_main_path_phase(torch, rt)
     # 4. card against CPU
     card_vs_cpu_phase(torch, rt)
     lm_card_vs_cpu_phase(torch, rt, "falcon-mamba-7b")
     lm_card_vs_cpu_phase(torch, rt, "recurrentgemma-9b")
+    if FAILED:
+        raise SystemExit(f"chip_smoke: {len(FAILED)} checks failed: "
+                         f"{FAILED}")
 
     emit({"kernels": [{
         "name": "linear_value_grad", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/linear_grad.cu",
         "replaces": "src/repro/kernels/linear_grad.py:50",
-        "launches": launches, "max_abs_err": main_row["max_abs_err"],
+        "launches": launches,
+        "launches_convex_methods": method_launches,
+        "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],

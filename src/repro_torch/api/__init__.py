@@ -6,7 +6,8 @@ from .specs import (CheckpointSpec, DataSpec, ElasticSpec, ModelSpec,
                     ObsSpec, OptimizerSpec, PolicySpec, RunSpec,
                     ScheduleSpec, ServeSpec, SpecError, TieringSpec,
                     TopologySpec)
-from .registry import OPTIMIZERS, POLICIES, build_optimizer, build_policy
+from .registry import (OPTIMIZERS, POLICIES, build_optimizer, build_policy,
+                       optimizer_spec_of)
 from .session import Session, build, convex_problem
 
 __all__ = [
@@ -14,5 +15,5 @@ __all__ = [
     "TopologySpec", "ElasticSpec", "CheckpointSpec", "ServeSpec",
     "ObsSpec", "ModelSpec", "TieringSpec", "SpecError", "Session", "build",
     "convex_problem", "POLICIES", "OPTIMIZERS", "build_policy",
-    "build_optimizer",
+    "build_optimizer", "optimizer_spec_of",
 ]

@@ -7,11 +7,12 @@ instead of an unknown-name error.
 """
 from __future__ import annotations
 
+import dataclasses
 import difflib
 from typing import Any
 
 from ..core.engine import (ComposedPolicy, ExpansionPolicy, FixedSteps,
-                           NeverExpand, TwoTrack)
+                           GradientVariance, NeverExpand, TwoTrack)
 from ..optim import REGISTRY as _OPTIM_REGISTRY
 from ..optim.api import BatchOptimizer
 from .specs import OptimizerSpec, PolicySpec, SpecError
@@ -29,6 +30,9 @@ class Registry:
 
     def names(self) -> list[str]:
         return sorted(self._entries)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._entries
 
     def get(self, name: str) -> Any:
         try:
@@ -55,9 +59,9 @@ POLICIES = Registry("policy", {
     "bet": FixedSteps,
     "fixed_steps": FixedSteps,
     "two_track": TwoTrack,
+    "bet_gradvar": GradientVariance,
+    "gradient_variance": GradientVariance,
 }, pending={
-    "bet_gradvar": "the GradientVariance policy (ROADMAP queue A4)",
-    "gradient_variance": "the GradientVariance policy (ROADMAP queue A4)",
     "traffic_driven": "the serve slice (ROADMAP queue A11)",
 })
 
@@ -66,13 +70,7 @@ POLICIES = Registry("policy", {
 # (it needs the ModelSpec's train step), not by a bare params call.
 LM_OPTIMIZER = "adamw_lm"
 OPTIMIZERS = Registry("optimizer",
-                      {**_OPTIM_REGISTRY, LM_OPTIMIZER: LM_OPTIMIZER},
-                      pending={
-    "cg": "the remaining optimizers (ROADMAP queue A3)",
-    "lbfgs": "the remaining optimizers (ROADMAP queue A3)",
-    "adagrad": "the remaining optimizers (ROADMAP queue A3)",
-    "adamw": "the remaining optimizers (ROADMAP queue A3)",
-})
+                      {**_OPTIM_REGISTRY, LM_OPTIMIZER: LM_OPTIMIZER})
 
 
 # ----------------------------------------------------------------- builders
@@ -106,3 +104,21 @@ def build_optimizer(spec: OptimizerSpec) -> BatchOptimizer:
     except TypeError as e:
         raise SpecError(f"optimizer {spec.name!r}: {e}") from None
 
+
+
+def optimizer_spec_of(opt: BatchOptimizer) -> OptimizerSpec:
+    """The spec a concrete optimizer instance round-trips through —
+    drivers hand pre-built optimizers to the spec'd sessions with this."""
+    if opt.name == LM_OPTIMIZER:
+        raise SpecError(
+            f"{LM_OPTIMIZER!r} instances hold model closures that cannot "
+            f"round-trip through a spec; describe the LM optimizer as "
+            f"OptimizerSpec('{LM_OPTIMIZER}', {{'lr': ..., "
+            f"'batch_size': ...}}) instead")
+    if opt.name not in OPTIMIZERS:
+        raise SpecError(
+            f"optimizer {type(opt).__name__} (name={opt.name!r}) is not "
+            f"registered")
+    params = {f.name: getattr(opt, f.name)
+              for f in dataclasses.fields(opt) if f.name != "name"}
+    return OptimizerSpec(name=opt.name, params=params)

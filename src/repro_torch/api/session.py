@@ -81,6 +81,8 @@ def convex_problem(data: DataSpec, *, device="cuda"):
     normalized out of the key), so repeated sessions over the same problem
     share the dataset tensors and the objective."""
     dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:    # one key per card
+        dev = torch.device("cuda", torch.cuda.current_device())
     return _convex_problem(data.replace(**_SERVING_FIELDS), str(dev))
 
 

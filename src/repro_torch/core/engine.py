@@ -9,6 +9,9 @@ The *when-to-expand* decision is orthogonal to the *how-to-step* loop:
       - ``FixedSteps``        Algorithm 1/3: κ̂ inner iterations per stage,
       - ``TwoTrack``          Algorithm 2: the parameter-free condition (3),
       - ``NeverExpand``       the Batch baseline (one full-window stage),
+      - ``GradientVariance``  beyond-paper: the Byrd et al. (2012) /
+                              AdaDamp-style norm test on BET's
+                              resampling-free expanding window,
       - ``ComposedPolicy``    veto (AND) / any_of (OR) composition.
 
   * ``BetEngine.run(dataset, optimizer, objective, policy, ...)`` — the
@@ -18,7 +21,8 @@ Stages run on the device.  A scan stage's chunk is a Python loop of
 optimizer steps (each free of host syncs) that writes f̂_t(w) and f̂(w)
 into preallocated device tensors; the host pulls them with one transfer
 per chunk (``trace.meta["host_transfers"]`` counts the pulls), then replays
-the §4.2 clock charges.
+the §4.2 clock charges.  A policy that ``wants_variance`` gets the
+gradient-variance statistics of the chunk's last point in the same pull.
 
 The Two-Track race runs in chunks whose cumulative sizes are 2, 4, 8, …:
 both tracks step through a chunk with no host read, and one pull brings
@@ -35,7 +39,9 @@ second carry, so a carry of any size races in chunks.  Host-side leaves
 their values per step and restores the trigger step's.  A racing stage of
 s steps costs about ⌈log₂ s⌉ transfers.  The steps run past a trigger are
 counted in ``trace.meta["race_overshoot"]``; they never reach the trace
-or the clock.
+or the clock.  A policy that wants the variance test (a
+``GradientVariance`` veto) gets one more pull after each race round, as
+in the reference.
 
 Parameters and optimizer states may be single tensors (the convex path) or
 nested dicts of tensors (the LM path); optimizers are functional (a step
@@ -127,6 +133,8 @@ class StageRecords:
         self._params: list[np.ndarray] = []   # per-chunk (steps, d) params
         self.f_fast_on_t: np.ndarray | None = None   # two-track only
         self.triggered: bool = False                  # two-track condition (3)
+        self.var: float = 0.0                         # gradient-variance stats
+        self.g2: float = 0.0
 
     def add_chunk(self, f_window, f_full=None, params=None):
         self._f_window.append(np.asarray(f_window))
@@ -138,6 +146,9 @@ class StageRecords:
     @property
     def steps(self) -> int:
         return sum(len(c) for c in self._f_window)
+
+    def chunk_lengths(self) -> list[int]:
+        return [len(c) for c in self._f_window]
 
     def f_window(self) -> np.ndarray:
         return np.concatenate(self._f_window) if self._f_window else np.empty(0)
@@ -175,7 +186,9 @@ class ExpansionPolicy:
     name = "policy"
     kind = "scan"               # "scan" | "two_track"
     eval_full = True            # evaluate f̂(w) per step (False: f_full := f_window)
+    wants_variance = False      # compute per-example gradient-variance stats
     record_every = 1
+    probe = 0
 
     def windows(self, schedule: BETSchedule, N: int) -> list[int]:
         return schedule.windows(N)
@@ -246,6 +259,39 @@ class TwoTrack(ExpansionPolicy):
         return records.steps >= self.final_steps    # final phase budget spent
 
 
+@dataclasses.dataclass
+class GradientVariance(ExpansionPolicy):
+    """Beyond-paper adaptive trigger: the gradient-variance "norm test" of
+    DSM (Byrd, Chin, Nocedal, Wu 2012) / AdaDamp (Alfarra et al.), applied
+    to BET's *resampling-free* expanding window.  After each chunk the
+    engine measures, on a ``probe``-point prefix of the resident window,
+
+        v = ‖Var_i ∇ℓ_i(w)‖₁ / k     vs     g² = ‖∇f̂_t(w)‖² ;
+
+    once noise dominates signal (v > θ² g²) the window's gradient has no
+    more to teach and the stage ends.  Unlike DSM this touches no new data
+    until the expansion itself, so Thm 4.1's access bound still applies.
+    Requires ``data = (X, y)`` with per-example rows (the convex path)."""
+    theta: float = 0.5
+    probe: int = 256
+    chunk: int = 4
+    min_stage_steps: int = 2
+    max_stage_iters: int = 64
+    final_steps: int = 40
+    name = "bet_gradvar"
+    wants_variance = True
+
+    def plan_steps(self, info, done_steps):
+        return self.final_steps if info.is_final else self.chunk
+
+    def should_expand(self, info, records):
+        if info.is_final or records.steps >= self.max_stage_iters:
+            return True
+        if records.steps < self.min_stage_steps:
+            return False
+        return records.var > (self.theta ** 2) * max(records.g2, 1e-30)
+
+
 class ComposedPolicy(ExpansionPolicy):
     """Policy composition: one primary policy owns the stage loop shape
     (chunks or the two-track race) and the expansion proposal; ``vetoes``
@@ -270,6 +316,8 @@ class ComposedPolicy(ExpansionPolicy):
         self.kind = primary.kind
         self.eval_full = primary.eval_full
         self.record_every = primary.record_every
+        self.wants_variance = any(p.wants_variance for p in members)
+        self.probe = max((int(p.probe) for p in members), default=0)
 
     def __getattr__(self, item):
         if item == "primary":           # guard pre-__init__ lookups
@@ -296,6 +344,18 @@ class ComposedPolicy(ExpansionPolicy):
     def stage_end(self, info: StageInfo, records: StageRecords) -> None:
         for p in (self.primary,) + self.vetoes + self.any_of:
             p.stage_end(info, records)
+
+
+def variance_stats(objective: Objective, w, data, k: int):
+    """(‖Var_i ∇ℓ_i‖₁ / k, ‖ḡ‖²) over the first ``k`` rows of (X, y) — the
+    DSM / GradientVariance test, as device tensors.  The per-example
+    gradients (of f̂ on one-row windows) come in closed form from the
+    objective; their common λw term is in ḡ and cancels in the variance."""
+    X, y = data
+    gs = objective.example_grads(w, (X[:k], y[:k]))        # (k, d)
+    gbar = torch.mean(gs, dim=0)
+    v = torch.sum(torch.mean((gs - gbar) ** 2, dim=0)) / k
+    return v, torch.sum(gbar ** 2)
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -444,10 +504,11 @@ class BetEngine:
 
     # ------------------------------------------------------------ scan stages
     def _run_chunk(self, ctx, optimizer, objective, carry: list, win,
-                   full_data, k: int, *, eval_full: bool):
+                   full_data, k: int, *, eval_full: bool, probe_k: int = 0):
         """``k`` inner steps on ``win`` from ``carry`` ([w, state], updated
         in place); per-step records land in device buffers and come back
-        in one pull."""
+        in one pull, with the variance statistics of the last point on a
+        ``probe_k``-row prefix of ``win`` when ``probe_k`` > 0."""
         dev = tree_leaves(carry[0])[0].device
         bufs = {"f": torch.empty((k,), dtype=torch.float32, device=dev)}
         if eval_full:
@@ -462,6 +523,9 @@ class BetEngine:
                 bufs["f_full"][j] = objective(carry[0], full_data)
             if "w" in bufs:
                 _store(bufs["w"], j, carry[0])
+        if probe_k:
+            bufs["var"], bufs["g2"] = variance_stats(objective, carry[0], win,
+                                                     probe_k)
         return _pull(ctx, bufs)
 
     def _run_scan_stage(self, ctx, dataset, optimizer, objective, policy,
@@ -472,19 +536,24 @@ class BetEngine:
         win = dataset.window(info.n_t)
         if self.wait_on_expand:
             ctx["clock"].wait_for(info.n_t)
+        probe_k = min(int(policy.probe), info.n_t) \
+            if policy.wants_variance else 0
         policy.stage_begin(info)
         rec = StageRecords()
         while True:
             k = int(policy.plan_steps(info, rec.steps))
             pulled = self._run_chunk(ctx, optimizer, objective, carry, win,
-                                     full_data, k, eval_full=eval_full)
+                                     full_data, k, eval_full=eval_full,
+                                     probe_k=probe_k)
             rec.add_chunk(pulled["f"], pulled.get("f_full"), pulled.get("w"))
+            if probe_k:
+                rec.var, rec.g2 = float(pulled["var"]), float(pulled["g2"])
             if policy.should_expand(info, rec):
                 break
             if rec.steps > self.max_engine_steps:
                 raise RuntimeError(
                     f"policy {policy.name} never expanded after {rec.steps} steps")
-        self._flush_stage(ctx, policy, info, rec)
+        self._flush_stage(ctx, policy, info, rec, eval_charge=probe_k)
         policy.stage_end(info, rec)
         self._stage_boundary(ctx, info, *carry)
 
@@ -499,17 +568,25 @@ class BetEngine:
                 step_count=ctx["step_count"], stages=ctx["stages"],
                 transfers=ctx["transfers"], overshoot=ctx["overshoot"]))
 
-    def _flush_stage(self, ctx, policy, info: StageInfo, rec: StageRecords):
+    def _flush_stage(self, ctx, policy, info: StageInfo, rec: StageRecords,
+                     *, eval_charge: int = 0):
         """Replay the §4.2 clock charges for the stage's inner steps and land
-        the whole stage in the trace with one Trace.extend call."""
+        the whole stage in the trace with one Trace.extend call.
+        ``eval_charge`` > 0 bills one eval pass of that many points after
+        each chunk — the variance probe (charged like DSM's norm test)."""
         clock, cost, trace = ctx["clock"], ctx["cost"], ctx["trace"]
         fs, ffull = rec.f_window(), rec.f_full()
         n = len(fs)
         times = np.empty(n)
         accs = np.empty(n, dtype=np.int64)
-        for i in range(n):
-            clock.batch_update(cost(info.n_t))
-            times[i], accs[i] = clock.time, clock.data_accesses
+        i = 0
+        for clen in rec.chunk_lengths():
+            for j in range(clen):
+                clock.batch_update(cost(info.n_t))
+                if eval_charge and j == clen - 1:
+                    clock.eval_pass(eval_charge)
+                times[i], accs[i] = clock.time, clock.data_accesses
+                i += 1
         every = max(1, int(policy.record_every))
         idx = [i for i in range(n) if i % every == 0 or i == n - 1]
         extras = None
@@ -603,6 +680,8 @@ class BetEngine:
                 state if self.carry_state else optimizer.init(w))
             st_fast = optimizer.init(w)
             policy.stage_begin(info)
+            probe_k = min(int(policy.probe), n_t) \
+                if policy.wants_variance else 0
             rec = StageRecords()
             fast_hist: list[np.ndarray] = []
             # race rounds: plain TwoTrack always confirms after one round;
@@ -617,6 +696,10 @@ class BetEngine:
                 fast_hist.append(f_fast)
                 rec.f_fast_on_t = np.concatenate(fast_hist)
                 rec.triggered = pulled["triggered"]
+                if probe_k:             # the variance test: one more pull
+                    v, g2 = variance_stats(objective, w, win_t, probe_k)
+                    stats = _pull(ctx, {"var": v, "g2": g2})
+                    rec.var, rec.g2 = float(stats["var"]), float(stats["g2"])
                 if policy.should_expand(info, rec):
                     break
                 if rec.steps > self.max_engine_steps:
@@ -627,15 +710,21 @@ class BetEngine:
                 st_fast = optimizer.init(w)
             s = rec.steps
             # replay the per-step clock charges: slow update, fast update,
-            # condition evaluation (charged per the paper unless disabled)
+            # condition evaluation (charged per the paper unless disabled),
+            # plus one variance-probe eval at each race round's end
             times = np.empty(s)
             accs = np.empty(s, dtype=np.int64)
-            for i in range(s):
-                clock.batch_update(cost(n_t))
-                clock.batch_update(cost(n_prev))
-                if policy.charge_condition_eval:
-                    clock.eval_pass(cost(n_t))
-                times[i], accs[i] = clock.time, clock.data_accesses
+            i = 0
+            for clen in rec.chunk_lengths():
+                for j in range(clen):
+                    clock.batch_update(cost(n_t))
+                    clock.batch_update(cost(n_prev))
+                    if policy.charge_condition_eval:
+                        clock.eval_pass(cost(n_t))
+                    if probe_k and j == clen - 1:
+                        clock.eval_pass(probe_k)
+                    times[i], accs[i] = clock.time, clock.data_accesses
+                    i += 1
             extras = [{"f_fast_on_t": float(rec.f_fast_on_t[i])}
                       for i in range(s)]
             if ctx["probe"] is not None:

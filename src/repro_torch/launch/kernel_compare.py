@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """One checkout's B1 and B4 kernels on the card, for comparing two
-checkouts on one card: their outputs bit for bit, their times, and the
-hybrid path's f̂.
+checkouts on one card: their outputs bit for bit, their times, the
+hybrid path's f̂, and the LM train steps' peak memory phase by phase.
 
-    python3 src/repro_torch/launch/kernel_compare.py run TREE OUT [--hybrid]
+    python3 src/repro_torch/launch/kernel_compare.py run TREE OUT \
+        [--hybrid] [--step-memory]
     python3 src/repro_torch/launch/kernel_compare.py diff OUT_A OUT_B
 
 ``run`` imports ``repro_torch`` from TREE/src (TREE is a checkout's root,
@@ -16,7 +17,17 @@ shape, linear_value_grad (B1) at the convex path's w8a_like@6 window
 prints one JSON line with each kernel's card time (``chip_smoke.time_ms``:
 back to back behind a spin kernel).  With ``--hybrid`` it then runs
 chip_smoke.py's recurrentgemma-9b ``fixed_steps`` path at full width and
-prints f̂ on the probe before the run and after each stage.
+prints f̂ on the probe before the run and after each stage.  With
+``--step-memory`` it then takes one train step of each of chip_smoke.py's
+full-width LM paths (falcon-mamba-7b and recurrentgemma-9b at its layers
+and batch) as the checkout's own ``loss_fn`` defaults make it (its
+rematerialization included), in three phases: the forward with the
+graph, the backward, and the AdamW update; each after
+``torch.cuda.reset_peak_memory_stats`` and ended by a synchronize, a
+first step a warm-up.  It prints one line per path with each phase's
+host-clock seconds and peak allocated GB, and the loss and the squared
+gradient norm as float hex (equal across checkouts when the step's
+arithmetic is).
 
 ``diff`` prints, for each output saved in both directories, how many
 elements differ and the largest difference; in bfloat16, how many differ
@@ -37,7 +48,54 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[3]
 
 
-def run(tree: Path, out: Path, hybrid: bool) -> None:
+def step_memory(torch, cs, api, arch: str, layers: int, batch_size: int,
+                seq: int, corpus: int) -> dict:
+    """One full-width train step of an LM path, phase by phase (see the
+    module's docstring)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adam import adamw_init, adamw_update
+    from repro_torch.optim.api import tree_leaves, tree_map
+
+    spec = cs.lm_spec(api, arch=arch, reduced=False, policy="fixed_steps",
+                      corpus=corpus, seq_len=seq, n0=batch_size,
+                      layers=layers, batch=batch_size)
+    sess = api.build(spec, device="cuda")
+    cfg, params = sess.model_config, sess.w0
+    rows = sess.dataset.window(batch_size)
+    batch = {"tokens": rows[:, :-1], "labels": rows[:, 1:]}
+    opt_state = adamw_init(params)
+    row = {"path": arch, "layers": layers, "batch": [batch_size, seq]}
+
+    def phase(name, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        row[f"{name}_s"] = time.perf_counter() - t0
+        row[f"{name}_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        return result
+
+    for _ in range(2):                      # the first is a warm-up
+        p = tree_map(lambda x: x.detach().requires_grad_(True), params)
+        with torch.enable_grad():
+            loss = phase("forward", lambda: T.loss_fn(
+                cfg, p, batch, impl="pallas")[0])
+            grads = phase("backward", lambda: torch.autograd.grad(
+                loss, tree_leaves(p)))
+        del p
+        it = iter(grads)
+        tree = tree_map(lambda _: next(it), params)
+        phase("adamw", lambda: adamw_update(params, tree, opt_state,
+                                            lr=3e-4, weight_decay=0.1))
+        row["loss"] = float(loss.detach()).hex()
+        row["grad_sq"] = float(sum(torch.sum(g.float() ** 2)
+                                   for g in grads)).hex()
+        del loss, grads, tree
+    return row
+
+
+def run(tree: Path, out: Path, hybrid: bool, memory: bool) -> None:
     sys.path.insert(0, str(tree.resolve() / "src"))
     sys.path.insert(1, str(ROOT))
     # the hybrid run holds most of the card, as in chip_smoke.py
@@ -96,7 +154,18 @@ def run(tree: Path, out: Path, hybrid: bool) -> None:
         row["f_full_after_stage"] = [
             [p for p in tr.points if p.stage == end["stage"]][-1].f_full
             for end in sess.stage_ends]
+        del sess, tr
     print(json.dumps(row), flush=True)
+    if memory:
+        for path in (("falcon-mamba-7b", cs.LM_LAYERS, cs.LM_BATCH,
+                      cs.LM_SEQ, cs.LM_CORPUS),
+                     ("recurrentgemma-9b", cs.HY_LAYERS, cs.HY_BATCH,
+                      cs.HY_SEQ, cs.HY_CORPUS)):
+            gc.collect()
+            torch.cuda.empty_cache()
+            print(json.dumps({"tree": str(tree),
+                              **step_memory(torch, cs, api, *path)}),
+                  flush=True)
 
 
 def diff(dir_a: Path, dir_b: Path) -> None:
@@ -131,12 +200,13 @@ def main() -> None:
     r.add_argument("tree", type=Path)
     r.add_argument("out", type=Path)
     r.add_argument("--hybrid", action="store_true")
+    r.add_argument("--step-memory", action="store_true")
     d = sub.add_parser("diff")
     d.add_argument("a", type=Path)
     d.add_argument("b", type=Path)
     args = ap.parse_args()
     if args.cmd == "run":
-        run(args.tree, args.out, args.hybrid)
+        run(args.tree, args.out, args.hybrid, args.step_memory)
     else:
         diff(args.a, args.b)
 

@@ -4,7 +4,9 @@
 The reference differentiates the loss with ``jax.value_and_grad`` inside
 ``jit``; here autograd runs eagerly on detached copies of the parameter
 leaves, and the AdamW update returns a new tree (nothing is written in
-place, see ``optim/adam.py``)."""
+place, see ``optim/adam.py``).  ``remat`` (default on, as in the
+reference) rematerializes the model's layers in the backward pass
+(``models/transformer.py``)."""
 from __future__ import annotations
 
 import torch
@@ -16,11 +18,12 @@ from ..optim.api import tree_leaves, tree_map
 
 
 def make_train_step(cfg: ModelConfig, *, lr: float = 3e-4,
-                    weight_decay: float = 0.1, impl: str = "xla"):
+                    weight_decay: float = 0.1, impl: str = "xla",
+                    remat: bool = True):
     def train_step(params, opt_state, batch):
         p = tree_map(lambda x: x.detach().requires_grad_(True), params)
         with torch.enable_grad():
-            loss, metrics = T.loss_fn(cfg, p, batch, impl=impl)
+            loss, metrics = T.loss_fn(cfg, p, batch, impl=impl, remat=remat)
             flat = torch.autograd.grad(loss, tree_leaves(p))
         it = iter(flat)
         grads = tree_map(lambda _: next(it), p)

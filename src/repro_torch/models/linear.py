@@ -8,8 +8,9 @@ Both make f̂ λ-strongly convex, the setting of Theorem 4.1.
 The objective keeps the reference's ``objective(w, data) -> scalar``
 contract and adds what the reference got from autodiff, in closed form:
 ``value_and_grad`` through the fused ``linear_value_grad`` kernel (the
-Hopper kernel on the card, its plain version on the CPU) and ``hvp``,
-Xᵀ(ℓ″⊙Xv)/n + λv, in place of forward-over-reverse.
+Hopper kernel on the card, its plain version on the CPU), ``hvp``,
+Xᵀ(ℓ″⊙Xv)/n + λv, in place of forward-over-reverse, and
+``example_grads``, the per-example gradients of the variance tests.
 """
 from __future__ import annotations
 
@@ -40,8 +41,19 @@ def _logistic_curvature(margin):
     return torch.sigmoid(margin) * torch.sigmoid(-margin)
 
 
+def _squared_hinge_slope(margin):
+    # d/dm max(0, 1 - m)² = -2·max(0, 1 - m)
+    return -2.0 * torch.clamp(1.0 - margin, min=0.0)
+
+
+def _logistic_slope(margin):
+    # d/dm softplus(-m) = -σ(-m)
+    return -torch.sigmoid(-margin)
+
+
 LOSSES: dict[str, Callable] = {"squared_hinge": squared_hinge,
                                "logistic": logistic}
+_SLOPE = {"squared_hinge": _squared_hinge_slope, "logistic": _logistic_slope}
 _CURVATURE = {"squared_hinge": _squared_hinge_curvature,
               "logistic": _logistic_curvature}
 
@@ -106,6 +118,13 @@ class LinearObjective:
     def hvp(self, w, data, v):
         return self.hvp_operator(w, data)(v)
 
+    def example_grads(self, w, data):
+        """The gradient of f̂ on each one-row window (x_i, y_i), as a
+        (n, d) tensor: ℓ′(mᵢ)·yᵢ·xᵢ + λw (the reference vmaps autodiff)."""
+        X, y = data
+        slope = _SLOPE[self.loss](y * ops.linear_forward(X, w))
+        return (slope * y)[:, None] * X + self.lam * w
+
 
 def make_objective(loss: str = "squared_hinge",
                    lam: float = 1e-4) -> LinearObjective:
@@ -135,4 +154,4 @@ def solve_reference(objective, w0, data, *, steps: int = 200):
 def rfvd(objective, w, data, f_star) -> torch.Tensor:
     """log Relative Functional Value Difference (Eq. 6)."""
     return torch.log10(torch.clamp(
-        (objective(w, data) - f_star) / torch.abs(f_star), min=1e-16))
+        (objective(w, data) - f_star) / abs(f_star), min=1e-16))

@@ -8,10 +8,15 @@ whose tensors carry a leading layer axis, so a reference parameter tree
 carries across one to one (``convert.params_from_jax``).  The reference
 scans each stack with ``lax.scan``; here a Python loop runs over the
 layer axis; a hybrid runs super-blocks of its pattern (rec, rec, attn),
-then the layers of an incomplete last super-block.  The reference
-rematerializes the layer and loss-chunk bodies
-in the backward pass (``jax.checkpoint``); the port keeps activations
-instead, which changes memory and no number.
+then the layers of an incomplete last super-block.  As the reference does
+with ``jax.checkpoint``, the backward pass rematerializes: with ``remat``
+(the default) each layer body of a homogeneous stack and each hybrid
+super-block keep only their input for the backward and run again inside
+it, and so does each cross-entropy chunk, always.  Recomputation repeats
+the same operations on the same inputs, so it changes memory and time,
+and the loss and gradients only where an operation does not repeat its
+bits; the kernels inside a rematerialized region (the scans, the
+attention) launch once more per train step.
 
 Vocabulary sizes are padded to multiples of 256 (``vocab_padded``);
 labels never reference pad ids.
@@ -19,6 +24,7 @@ labels never reference pad ids.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 from .attention import attention_block
 from .common import ModelConfig
@@ -158,25 +164,50 @@ def _layer_body(cfg: ModelConfig, t: str, p, x, positions, impl: str):
     return x + swiglu(h2, p["w_gate"], p["w_up"], p["w_down"])
 
 
+# The contexts a rematerialized region runs in, the forward pass's and the
+# recomputation's (``torch.utils.checkpoint``'s ``context_fn``): a
+# profiler may set it to time the recomputation inside the backward.
+REMAT_CONTEXT = noop_context_fn
+
+
+def _remat(fn, *args):
+    """``fn(*args)`` keeping only its inputs for the backward pass, which
+    runs ``fn`` again to get the rest (the reference's ``jax.checkpoint``).
+    Outside autograd it is a plain call.  The model draws no random
+    numbers, so no generator state is saved for the recomputation."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False, context_fn=REMAT_CONTEXT)
+
+
 def _layer(params, t: str, i: int) -> dict:
     """Layer ``i`` of ``stack_<t>``."""
     return {k: v[i] for k, v in params[f"stack_{t}"].items()}
 
 
 def hidden_forward(cfg: ModelConfig, params, inputs, positions, *,
-                   impl: str = "xla"):
-    """inputs: (B,S,d) embeddings -> the final-normed hidden states."""
+                   impl: str = "xla", remat: bool = True):
+    """inputs: (B,S,d) embeddings -> the final-normed hidden states.  With
+    ``remat``, each layer of a homogeneous stack and each hybrid
+    super-block is rematerialized in the backward pass (the tail layers of
+    an incomplete super-block are not, as in the reference)."""
     x = inputs
     types = cfg.layer_types()
     if cfg.family == "hybrid":
         pat = cfg.block_pattern or ("rec", "rec", "attn")
         n_super = len(types) // len(pat)
         per_block = {t: pat.count(t) for t in set(pat)}
-        for idx in range(n_super):
+
+        def super_body(x, idx):
             for j, t in enumerate(pat):
                 i = idx * per_block[t] + pat[:j].count(t)
                 x = _layer_body(cfg, t, _layer(params, t, i), x, positions,
                                 impl)
+            return x
+
+        for idx in range(n_super):
+            x = _remat(super_body, x, idx) if remat else super_body(x, idx)
         # tail: the layers of an incomplete last super-block
         used = {t: n_super * per_block[t] for t in per_block}
         for t in pat[:len(types) - n_super * len(pat)]:
@@ -185,7 +216,12 @@ def hidden_forward(cfg: ModelConfig, params, inputs, positions, *,
             used[t] += 1
     else:                               # one stack, layer i at slot i
         for i, t in enumerate(types):
-            x = _layer_body(cfg, t, _layer(params, t, i), x, positions, impl)
+            if remat:
+                x = _remat(_layer_body, cfg, t, _layer(params, t, i), x,
+                           positions, impl)
+            else:
+                x = _layer_body(cfg, t, _layer(params, t, i), x, positions,
+                                impl)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -200,10 +236,19 @@ def embed_inputs(cfg: ModelConfig, params, batch):
     return params["embed"][tokens], positions
 
 
+def _chunk_loss(hc, lm_head, yc):
+    """Σ (log Z - gold logit) over one chunk's tokens."""
+    logits = (hc @ lm_head).float()                              # (B,c,Vp)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, yc[..., None].long())[..., 0]
+    return torch.sum(logz - gold)
+
+
 def lm_loss(cfg: ModelConfig, h, lm_head, labels, *, chunk: int = 512):
-    """Chunked cross-entropy over the (padded) vocabulary: a loop over
-    sequence chunks keeps the logits O(B·chunk·V); the mean is over all
-    B·S tokens, as the reference's."""
+    """Chunked cross-entropy over the (padded) vocabulary; the mean is over
+    all B·S tokens, as the reference's.  Each chunk is rematerialized in
+    the backward pass, so one chunk's float32 logits, O(B·chunk·V), are
+    alive at a time in the forward and in the backward."""
     B, S, d = h.shape
     chunk = min(chunk, S)
     if S % chunk:
@@ -211,17 +256,16 @@ def lm_loss(cfg: ModelConfig, h, lm_head, labels, *, chunk: int = 512):
                          f"chunk {chunk}")
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(0, S, chunk):
-        logits = (h[:, i:i + chunk] @ lm_head).float()           # (B,c,Vp)
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1,
-                            labels[:, i:i + chunk, None].long())[..., 0]
-        total = total + torch.sum(logz - gold)
+        total = total + _remat(_chunk_loss, h[:, i:i + chunk], lm_head,
+                               labels[:, i:i + chunk])
     return total / (B * S)
 
 
-def loss_fn(cfg: ModelConfig, params, batch, *, impl: str = "xla"):
-    """(loss, metrics) for a batch {"tokens", "labels"} of (B, S) ids."""
+def loss_fn(cfg: ModelConfig, params, batch, *, impl: str = "xla",
+            remat: bool = True):
+    """(loss, metrics) for a batch {"tokens", "labels"} of (B, S) ids;
+    ``remat`` rematerializes the layers in the backward pass."""
     x, positions = embed_inputs(cfg, params, batch)
-    h = hidden_forward(cfg, params, x, positions, impl=impl)
+    h = hidden_forward(cfg, params, x, positions, impl=impl, remat=remat)
     loss = lm_loss(cfg, h, params["lm_head"], batch["labels"])
     return loss, {"ce_loss": loss}

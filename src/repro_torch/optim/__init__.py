@@ -2,11 +2,17 @@ from .api import (BatchOptimizer, armijo_line_search, hessian_vector_product,
                   quadratic_exact_step, tree_axpy, tree_dot, tree_scale,
                   tree_zeros_like)
 from .gd import GradientDescent
+from .nonlinear_cg import NonlinearCG
+from .lbfgs import LBFGS
 from .newton_cg import NewtonCG
+from .adagrad import Adagrad
+from .adam import AdamW
 
-# the reference's other optimizers (cg, lbfgs, adagrad, adamw) come with
-# later slices; repro_torch.api.registry names them as not yet ported
 REGISTRY = {
     "gd": GradientDescent,
+    "cg": NonlinearCG,
+    "lbfgs": LBFGS,
     "newton_cg": NewtonCG,
+    "adagrad": Adagrad,
+    "adamw": AdamW,
 }

@@ -1,6 +1,6 @@
-"""AdamW for the LM training path — the port of ``repro.optim.adam``'s
-functional update (BET as an outer data schedule around a standard LM
-optimizer).
+"""AdamW — the port of ``repro.optim.adam``: the functional update of the
+LM training path (BET as an outer data schedule around a standard LM
+optimizer), and the ``AdamW`` batch optimizer built on it.
 
 Functional: ``adamw_update`` returns new tensors and never writes into
 its arguments, so the two Two-Track tracks can start from one parameter
@@ -10,9 +10,11 @@ step never waits on the host.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
-from .api import tree_leaves, tree_map
+from .api import BatchOptimizer, Objective, tree_leaves, tree_map
 
 
 def adamw_init(params):
@@ -53,3 +55,26 @@ def adamw_update(params, grads, state, *, lr=3e-4, b1=0.9, b2=0.95,
     m = tree_map(first, state["m"], grads)
     v = tree_map(second, state["v"], grads)
     return tree_map(upd, params, m, v), {"m": m, "v": v, "t": t}
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamW(BatchOptimizer):
+    """AdamW behind the BatchOptimizer protocol: one ``value_and_grad``
+    and one ``adamw_update`` a step (the reference's class computes the
+    same update inline)."""
+    name: str = "adamw"
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+
+    def init(self, params):
+        return adamw_init(params)
+
+    def step(self, params, state, objective: Objective, data):
+        f0, g = objective.value_and_grad(params, data)
+        params, state = adamw_update(params, g, state, lr=self.lr, b1=self.b1,
+                                     b2=self.b2, eps=self.eps,
+                                     weight_decay=self.weight_decay)
+        return params, state, {"f": f0}

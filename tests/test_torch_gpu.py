@@ -61,10 +61,28 @@ def test_cuda_kernel_takes_row_views_of_the_window():
     assert torch.equal(L, Lc) and torch.equal(g, gc)
 
 
-# the sizes of chip_smoke.py's KERNEL_SHAPES (w8a_like@6, ragged,
-# webspam_like@1, rcv1_like@1, susy_like@64, small)
-KERNEL_SIZES = [(49152, 300), (49189, 300), (16384, 1024), (4096, 2048),
-                (4194304, 18), (200, 32)]
+# the sizes of chip_smoke.py's KERNEL_SHAPES (w8a_like@6, Adagrad's
+# mini-batch, a DSM sample, ragged, webspam_like@1, rcv1_like@1,
+# susy_like@64, small)
+KERNEL_SIZES = [(49152, 300), (64, 300), (512, 300), (49189, 300),
+                (16384, 1024), (4096, 2048), (4194304, 18), (200, 32)]
+
+
+@pytest.mark.parametrize("n", [64, 512])
+@pytest.mark.parametrize("loss", ["squared_hinge", "logistic"])
+def test_cuda_kernel_at_the_method_set_shapes(n, loss):
+    """Adagrad's 64-row mini-batches and DSM's 512-row samples, gathered
+    rows of the full-width problem, against the float64 plain version."""
+    _need_card()
+    X, y, w = _inputs(49152, 300, seed=n)
+    idx = torch.randperm(49152, generator=torch.Generator().manual_seed(n))
+    Xs, ys = X[idx[:n].cuda()], y[idx[:n].cuda()]
+    L, g = ops.linear_value_grad(Xs, ys, w, loss=loss)
+    L64, g64 = ref.linear_value_grad(Xs.double(), ys.double(), w.double(),
+                                     loss=loss)
+    assert abs(float(L) - float(L64)) <= 1e-5 * abs(float(L64))
+    assert float((g.double() - g64).abs().max()) <= \
+        1e-4 * max(1.0, float(g64.abs().max()))
 
 
 @pytest.mark.parametrize("n,d", KERNEL_SIZES)
@@ -272,11 +290,12 @@ def test_lm_path_on_card_matches_cpu(arch):
                    for k, v in cpu_sess.w0.items()}
     ops.reset_calls()
     gpu = gpu_sess.run()
-    # a train step and an f̂ probe per step: two forward passes, each
+    # a train step (its forward pass and the rematerialization in its
+    # backward) and an f̂ probe per step: three forward passes, each
     # launching the family's kernels once per layer that runs them
     counts = {t: sum(x == t for x in gpu_sess.model_config.layer_types())
               for t in ("ssm", "rec", "attn")}
-    passes = 2 * len(gpu.points)
+    passes = 3 * len(gpu.points)
     want = {"ssm_scan": counts["ssm"] * passes,
             "rglru_scan": counts["rec"] * passes,
             "flash_attention": counts["attn"] * passes}
@@ -497,3 +516,63 @@ def test_flash_attention_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention.flash_attention(q.transpose(1, 2).contiguous()
                                         .transpose(1, 2), k, v)
+
+
+# --------------------------------------------- repeats at the path shapes
+@pytest.mark.parametrize("B", [8, 16], ids=["train", "probe"])
+def test_ssm_scan_repeats_bitwise_at_the_mamba_shapes(B):
+    """A train step rematerializes the scan in its backward: the second
+    call must give the first call's bits (the mamba path's train and
+    probe shapes, bfloat16)."""
+    _need_card()
+    args = _scan_inputs(B, 256, 8192, 16, seed=B, dtype=torch.bfloat16)
+    y = ops.ssm_scan(*args)
+    for _ in range(2):
+        assert torch.equal(y, ops.ssm_scan(*args))
+
+
+@pytest.mark.parametrize("B", [2, 16], ids=["train", "probe"])
+def test_flash_attention_repeats_bitwise_at_the_hybrid_shapes(B):
+    _need_card()
+    q, k, v = _qkv(B, 4096, 16, 1, 256, seed=B, dtype=torch.bfloat16)
+    o = ops.flash_attention(q, k, v, window=2048)
+    for _ in range(2):
+        assert torch.equal(o, ops.flash_attention(q, k, v, window=2048))
+
+
+@pytest.mark.parametrize("policy,optimizer", [
+    ("two_track", "cg"), ("two_track", "lbfgs"), ("two_track", "adamw"),
+    ("gradient_variance", "newton_cg")])
+def test_convex_method_runs_on_card_match_cpu(policy, optimizer):
+    """The other optimizers and the gradient-variance policy on the card:
+    the CPU's columns and host transfers, f̂ within 1e-4."""
+    _need_card()
+    spec = P.RunSpec(
+        data=P.DataSpec(dataset="w8a_like", scale=0.5, lam=1e-3),
+        policy=P.PolicySpec(policy, {"final_steps": 5}),
+        optimizer=P.OptimizerSpec(optimizer, {"lr": 0.01}
+                                  if optimizer == "adamw" else {}),
+        schedule=P.ScheduleSpec(n0=128))
+    gpu, cpu = (P.build(spec, device=d).run() for d in ("cuda", "cpu"))
+    for col in ("step", "stage", "window", "time", "accesses"):
+        assert gpu.column(col) == cpu.column(col), col
+    assert gpu.meta["host_transfers"] == cpu.meta["host_transfers"]
+    np.testing.assert_allclose(gpu.column("f_full"), cpu.column("f_full"),
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("method", ["dsm", "adagrad"])
+def test_baselines_on_card_match_cpu(method):
+    _need_card()
+    from repro_torch.launch import methods
+    out = []
+    for device in ("cuda", "cpu"):
+        ds, obj, w0 = P.convex_problem(
+            P.DataSpec(dataset="w8a_like", scale=0.5, lam=1e-3),
+            device=device)
+        out.append(methods.run_method(method, ds, obj, w0, steps=8))
+    gpu, cpu = out
+    for col in ("step", "stage", "window", "time", "accesses"):
+        assert gpu.column(col) == cpu.column(col), col
+    np.testing.assert_allclose(gpu.column("f_full"), cpu.column("f_full"),
+                               rtol=1e-4)

@@ -156,8 +156,9 @@ def test_lm_build_fixed_steps_matches_reference(monkeypatch):
     reference's parameters carried into the port's session: equal
     schedule, clock and access columns, f̂ within RTOL_F; and the two rec
     layers' scans and the attn layer's attention run once per forward
-    pass (a train step and an f̂ probe per step) — the count
-    chip_smoke.py holds the card's launches to."""
+    pass (a train step, its rematerialization in the backward and an f̂
+    probe per step) — the count chip_smoke.py holds the card's launches
+    to."""
     spec = _lm_spec("fixed_steps", {"inner_steps": 3, "final_steps": 3})
     ref_sess = R.build(spec)
     ref = ref_sess.run()
@@ -170,7 +171,7 @@ def test_lm_build_fixed_steps_matches_reference(monkeypatch):
             return real(*a, **kw)
         monkeypatch.setattr(tops, name, counting)
     port = sess.run()
-    forward_passes = 2 * len(port.points)
+    forward_passes = 3 * len(port.points)
     assert calls == {"rglru_scan": 2 * forward_passes,
                      "flash_attention": forward_passes}
     assert len(port.points) == len(ref.points) == 6

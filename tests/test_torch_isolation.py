@@ -1,6 +1,7 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
 neither JAX nor anything of the reference package ``repro``."""
 import ast
+import json
 import os
 import pathlib
 import subprocess
@@ -18,9 +19,20 @@ def _port_files():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
+# the modules of the convex method set and the examples, which must be
+# among those the import check walks (and importing an example or the
+# method-set driver runs nothing)
+CONVEX_MODULES = [
+    "repro_torch.optim.nonlinear_cg", "repro_torch.optim.lbfgs",
+    "repro_torch.optim.adagrad", "repro_torch.core.dsm",
+    "repro_torch.core.theory", "repro_torch.launch.methods",
+    "repro_torch.examples.quickstart", "repro_torch.examples.two_track_demo",
+]
+
+
 def test_every_module_imports_with_jax_and_repro_blocked():
     code = (
-        "import sys, importlib, pkgutil\n"
+        "import sys, importlib, pkgutil, json\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
         "import repro_torch\n"
@@ -31,12 +43,15 @@ def test_every_module_imports_with_jax_and_repro_blocked():
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib')\n"
         "       and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
-        "print(len(names))\n")
+        "print(json.dumps(names))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    names = json.loads(out.stdout)
+    assert len(names) >= 50
+    assert set(CONVEX_MODULES) <= set(names)
+    assert out.stdout.count("\n") == 1         # no module printed a thing
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -194,9 +194,10 @@ def test_lm_chunked_race_equals_a_race_of_single_steps(monkeypatch):
     the chunked race returns bitwise what a race in chunks of one step
     (``RACE_DOUBLING`` off) returns, and the scan runs
     num_layers times per forward pass the traces and the overshoot imply
-    (per race step: two train steps and three f̂ probes; per final step:
-    one train step and one f̂ probe) — the count chip_smoke.py holds the
-    card's launches to."""
+    (per race step: two train steps, each a forward pass and its
+    rematerialization in the backward, and three f̂ probes; per final
+    step: one train step, two passes, and one f̂ probe) — the count
+    chip_smoke.py holds the card's launches to."""
     spec = P.RunSpec.from_json(_lm_spec(
         "two_track", {"final_steps": 2, "max_stage_iters": 8,
                       "condition": "eval", "final_eval_full": True},
@@ -226,7 +227,7 @@ def test_lm_chunked_race_equals_a_race_of_single_steps(monkeypatch):
         race = sum("f_fast_on_t" in p.extra for p in tr.points) \
             + tr.meta["race_overshoot"]
         final = sum("f_fast_on_t" not in p.extra for p in tr.points)
-        assert n == layers * (5 * race + 2 * final)
+        assert n == layers * (7 * race + 3 * final)
 
 
 def test_lm_race_pulls_log2_times_per_stage_and_keeps_no_snapshot(

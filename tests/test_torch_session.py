@@ -63,13 +63,11 @@ LM = dict(data=R.DataSpec(kind="lm"),
     (dict(checkpoint=R.CheckpointSpec(directory="ck")), "elastic slice"),
     (dict(obs=R.ObsSpec(enabled=True)), "observability slice"),
     (dict(serve=R.ServeSpec(enabled=True)), "serve slice"),
-    (dict(optimizer=R.OptimizerSpec("lbfgs")), "remaining optimizers"),
     (dict(LM, data=R.DataSpec(kind="lm", plane="plane"),
           model=R.ModelSpec(arch="falcon-mamba-7b")), "data-plane slice"),
-    (dict(policy=R.PolicySpec("gradient_variance")), "GradientVariance"),
     (dict(policy=R.PolicySpec("traffic_driven")), "serve slice"),
 ], ids=["lm", "plane", "hosts", "tiering", "elastic", "checkpoint", "obs",
-        "serve", "lbfgs", "adamw_lm", "gradient_variance", "traffic_driven"])
+        "serve", "adamw_lm", "traffic_driven"])
 def test_unported_branches_raise_spec_error(change, needle):
     spec = R.RunSpec(**{**BASE, **change})
     with pytest.raises(P.SpecError, match="not yet ported") as e:
