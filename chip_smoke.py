@@ -60,6 +60,29 @@ the script with a non-zero exit and no result line:
     and hybrid) in float32, under fixed_steps on the card and on the CPU
     (plain versions): clock and access columns equal, f̂ within rtol 1e-4.
 
+The streaming data plane (``DataSpec(plane="plane")``: shard stores, a
+prefetch thread and a window on the card that grows in place) carries
+the LM main paths of 3b and 3c, as the reference trainer's default, and
+has phases of its own, each run's launches counted from 0:
+ 3a". convex on the plane: quickstart@6 (768 shards of 64 rows),
+    two-track and batch, each held bit for bit against the host path (f̂,
+    the clock and access columns, transfers, the final w, B1's launches),
+    with the meter's counters (every example loaded and uploaded once,
+    accesses the clock's), its overlap and reuse and the stage walls;
+    then BENCH_data.json's fig3 setting through a memmap store in a
+    temporary directory, read with a 2 ms delay a shard.
+ 3b'/3c'. each LM main path's width and depth for two stages of two
+    steps on the host path and on the plane: loss per stage, f̂, every
+    column and the parameters' checksum held bitwise.
+ 3d. kill and resume: quickstart@6 two-track on the plane, and
+    falcon-mamba-7b two-track at full width and one layer (one 6.4 GB
+    checkpoint kept), each killed after stage 1 and resumed from its
+    stage checkpoint by ``resume_session`` in a fresh session; the
+    stitched run held bitwise against an uninterrupted one, the rewarm
+    record the stage's window; the checkpoint's bytes and write and read
+    seconds.  The checkpoints go to a temporary directory under build/,
+    deleted at the end.
+
 Then the ``{"kernels": [...]}`` line, and last ``{"ok": true, ...}``.
 """
 from __future__ import annotations
@@ -72,6 +95,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -183,6 +207,22 @@ ATTN_SHAPES = [
     ("f32_hd64_w48", 2, 512, 8, 2, 64, 48, "float32"),
     ("gqa16_f32", 1, 384, 16, 1, 128, 0, "float32"),
 ]
+
+
+# the streaming plane's phases.  BENCH_data.json's fig3 setting (the
+# reference's bench_data.py): webspam_like at scale 0.25 (4,096 x 1,024),
+# shards of 256 rows in a memmap store read with a 2 ms delay each,
+# fixed_steps (5, 25), n0 512, Newton-CG on half the window
+MEMMAP_DATA = dict(dataset="webspam_like", scale=0.25, shard_size=256,
+                   delay_ms=2.0)
+MEMMAP_N0, MEMMAP_STEPS, MEMMAP_HESSIAN = 512, (5, 25), 0.5
+# the LMs' plane-against-host runs: two stages of two steps at the main
+# paths' widths and depths (n0 half the corpus)
+SHORT_STEPS = (2, 2)
+# the LM kill-and-resume: falcon-mamba-7b at full width and one layer,
+# two-track over 256 sequences (two racing stages and the final phase),
+# killed after stage 1; one checkpoint kept on disk
+RESUME_LAYERS, RESUME_CORPUS, RESUME_N0, RESUME_ITERS = 1, 256, 64, 8
 
 
 def emit(obj) -> None:
@@ -808,10 +848,11 @@ def lm_spec(api, *, arch: str = "falcon-mamba-7b", reduced: bool, policy,
             corpus: int, seq_len: int, n0: int,
             max_stage_iters: int | None = None, layers: int = LM_LAYERS,
             batch: int = LM_BATCH, eval_rows: int = 16,
-            fixed: tuple = (3, 3)):
-    """launch/train.py's LM RunSpec (to_run_spec): the host-slice token
-    path, adamw_lm, a batch-cost clock that waits on expansion and carries
-    the Adam moments across stages."""
+            fixed: tuple = (3, 3), plane: str = "plane"):
+    """launch/train.py's LM RunSpec (to_run_spec): the streaming plane by
+    default (the trainer's ``use_plane=True``; shards of 64 sequences),
+    adamw_lm, a batch-cost clock that waits on expansion and carries the
+    Adam moments across stages."""
     if reduced:
         model = api.ModelSpec(arch=arch, reduced=True,
                               overrides={"dtype": "float32"})
@@ -828,7 +869,7 @@ def lm_spec(api, *, arch: str = "falcon-mamba-7b", reduced: bool, policy,
     return api.RunSpec(
         name=f"lm_{policy}",
         data=api.DataSpec(kind="lm", corpus_size=corpus, seq_len=seq_len,
-                          eval_rows=eval_rows, plane="host"),
+                          eval_rows=eval_rows, plane=plane),
         model=model, policy=pol,
         optimizer=api.OptimizerSpec("adamw_lm", {"lr": 3e-4,
                                                  "batch_size": batch}),
@@ -1043,7 +1084,7 @@ def step_breakdown(torch, rt, sess, params, batch_size: int, path: str,
     there."""
     T, adam, tree_map = rt["transformer"], rt["adam"], rt["tree_map"]
     cfg = sess.model_config
-    rows = sess.dataset.window(batch_size)
+    rows = first_rows(rt, sess, batch_size)
     batch = {"tokens": rows[:, :-1], "labels": rows[:, 1:]}
     opt_state = adam.adamw_init(params)
     seg = {}
@@ -1140,7 +1181,7 @@ def remat_bitwise(torch, rt, sess, params, batch_size: int,
     and the first run's gradients are alive throughout."""
     T, tree_map = rt["transformer"], rt["tree_map"]
     cfg = sess.model_config
-    rows = sess.dataset.window(batch_size)
+    rows = first_rows(rt, sess, batch_size)
     batch = {"tokens": rows[:, :-1], "labels": rows[:, 1:]}
     names = leaf_names(params)
     out = {"path": path, "check": "remat_on_against_off"}
@@ -1325,6 +1366,357 @@ def lm_card_vs_cpu_phase(torch, rt, arch: str) -> None:
                          f"{rel} > {RTOL_F}")
 
 
+def first_rows(rt, sess, k: int):
+    """The first ``k`` rows of a session's corpus, from either data path
+    (a host-path slice or the plane's MaskedWindow)."""
+    rows, _ = rt["window_rows"](sess.dataset.window(k))
+    return rows[:k]
+
+
+def checksum(torch, rt, params) -> list:
+    """One integer a leaf: the leaf's bits as integers, each times
+    (its index mod 65,521) + 1, summed in int64 (wrapping); equal lists
+    mean equal parameters but for a collision.  In chunks, so the
+    hybrid's 1.05 G-element embedding needs no 8 GB temporaries."""
+    out = []
+    for x in rt["tree_leaves"](params):
+        bits = x.detach().contiguous().reshape(-1).view(
+            torch.int16 if x.element_size() == 2 else torch.int32)
+        total, step = 0, 1 << 26
+        for lo in range(0, bits.numel(), step):
+            chunk = bits[lo:lo + step].to(torch.int64)
+            w = torch.arange(lo, lo + chunk.numel(), device=x.device,
+                             dtype=torch.int64) % 65521 + 1
+            total += int((chunk * w).sum())
+        out.append(total)
+    return out
+
+
+CONVEX_COLUMNS = ("step", "stage", "window", "time", "accesses",
+                  "f_window", "f_full")
+
+
+def plane_meter_checks(name: str, sess, tr) -> dict:
+    """The plane's meter after a run: every example loaded and uploaded
+    exactly once (no re-upload: the bytes uploaded are the corpus's),
+    and the accesses the clock's.  Returns the integer counters."""
+    m = tr.meta["data_plane"]
+    ds = sess.dataset
+    row_bytes = sum(st.example_nbytes for st in ds.stores)
+    ints = {k: v for k, v in m.items() if isinstance(v, int)}
+    bad = []
+    if not m["examples_loaded"] == m["examples_uploaded"] == ds.n:
+        bad.append(f"loaded {m['examples_loaded']}, uploaded "
+                   f"{m['examples_uploaded']} of {ds.n} examples")
+    if not m["bytes_uploaded"] == m["bytes_loaded"] == ds.n * row_bytes:
+        bad.append(f"{m['bytes_uploaded']} bytes uploaded, "
+                   f"{m['bytes_loaded']} loaded, the corpus is "
+                   f"{ds.n * row_bytes}")
+    if m["examples_accessed"] != sess.clock.data_accesses:
+        bad.append(f"{m['examples_accessed']} accesses metered, the clock "
+                   f"charged {sess.clock.data_accesses}")
+    for b in bad:
+        fail_later(f"{name}: {b}")
+    return ints
+
+
+RUN_COUNTERS = ("host_transfers", "race_overshoot", "stages")
+
+
+def run_record(tr, cols=CONVEX_COLUMNS, before=()) -> dict:
+    """A trace's columns, extras and run counters as plain lists and
+    values; ``before`` (a restored run's saved point dicts) goes ahead of
+    the trace's own points, so a resumed run reads as one whole run."""
+    return {"columns": {c: [q[c] for q in before] + tr.column(c)
+                        for c in cols},
+            "extra": [q["extra"] for q in before]
+            + [q.extra for q in tr.points],
+            **{k: tr.meta.get(k) for k in RUN_COUNTERS}}
+
+
+def bitwise_diff(a: dict, b: dict) -> list:
+    """What differs between two ``run_record``s: the columns by name, then
+    ``extra`` and the run counters (empty: nothing)."""
+    return [c for c in a["columns"] if a["columns"][c] != b["columns"][c]] \
+        + [k for k in ("extra",) + RUN_COUNTERS if a[k] != b[k]]
+
+
+def convex_plane_phase(torch, rt, scale: float = 6.0) -> int:
+    """quickstart@6 through the streaming plane (768 shards of 64 rows;
+    ``scale`` sets another size), two-track then batch, each against the
+    same spec on the host path bit for bit (every column, the final w,
+    transfers and B1 launches); each run's launches counted from 0.  Then
+    BENCH_data.json's setting: a throttled memmap store in a temporary
+    directory.  Returns the plane runs' B1 launches."""
+    api, ops, methods = rt["api"], rt["ops"], rt["methods"]
+    data, base = quickstart_specs(api, scale)
+    runs = {
+        "two_track": api.RunSpec(policy=api.PolicySpec(
+            "two_track", {"final_steps": 20}), **base),
+        "batch": api.RunSpec(policy=api.PolicySpec("batch", {"steps": 25}),
+                             **base),
+    }
+    with tempfile.TemporaryDirectory(dir=rt["build_dir"]) as workdir:
+        mm = api.DataSpec(lam=1e-3, store="memmap", workdir=workdir,
+                          **MEMMAP_DATA)
+        inner, final = MEMMAP_STEPS
+        runs["memmap_fig3"] = api.RunSpec(
+            data=mm, policy=api.PolicySpec(
+                "fixed_steps", {"inner_steps": inner, "final_steps": final}),
+            optimizer=api.OptimizerSpec(
+                "newton_cg", {"hessian_fraction": MEMMAP_HESSIAN}),
+            schedule=api.ScheduleSpec(n0=MEMMAP_N0))
+        total = 0
+        for name, spec in runs.items():
+            out = {}
+            for plane in ("host", "plane"):
+                sess = api.build(spec.replace(
+                    data=spec.data.replace(plane=plane)), device="cuda")
+                torch.cuda.synchronize()
+                ops.reset_calls()
+                tr, stamps, t0, wall = timed_run(torch, sess)
+                walls = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
+                out[plane] = (sess, tr, ops.CALLS["linear_value_grad"],
+                              walls, wall)
+            (hs, htr, hl, _, hwall), (ps, ptr, pl, walls, pwall) = \
+                out["host"], out["plane"]
+            differ = bitwise_diff(run_record(ptr), run_record(htr))
+            if not torch.equal(ptr.params, htr.params):
+                differ.append("params")
+            if pl != hl:
+                differ.append("launches")
+            ints = plane_meter_checks(f"convex plane {name}", ps, ptr)
+            m = ptr.meta["data_plane"]
+            st = ps.dataset.stores[0]
+            emit({"path": "convex_plane", "run": name,
+                  "n": ps.dataset.n, "d": ps.dataset.d,
+                  "shard_size": st.shard_size, "shards": st.num_shards,
+                  "store": spec.data.store, "delay_ms": spec.data.delay_ms,
+                  "steps": len(ptr.points), "stages": ptr.meta["stages"],
+                  "host_transfers": ptr.meta["host_transfers"],
+                  "linear_value_grad_launches": pl, "host_path_launches": hl,
+                  "implied_launches": methods.kernel_calls(ptr),
+                  "meter": ints, "overlap_fraction": m["overlap_fraction"],
+                  "reuse_ratio": m["reuse_ratio"],
+                  "load_time_s": m["load_time_s"],
+                  "blocked_time_s": m["blocked_time_s"],
+                  "stage_wall_s": walls, "wall_s": pwall,
+                  "host_path_wall_s": hwall,
+                  "f_full": ptr.final().f_full,
+                  "differs_from_host_path": differ})
+            if differ:
+                fail_later(f"convex plane {name}: differs from the host "
+                           f"path in {differ}")
+            if pl != methods.kernel_calls(ptr):
+                fail_later(f"convex plane {name}: {pl} launches, the trace "
+                           f"implies {methods.kernel_calls(ptr)}")
+            total += pl
+            del out, hs, ps
+    return total
+
+
+def lm_plane_vs_host_phase(torch, rt, arch: str) -> dict:
+    """A short full-width run of an LM main path (its width and depth,
+    fixed_steps over two stages of two steps) on the host path and on the
+    plane: the loss per stage, f̂, every trace column and the parameters'
+    checksum held bitwise, the kernels' launches equal.  One session at a
+    time: the hybrid holds most of the card."""
+    api, ops = rt["api"], rt["ops"]
+    if arch == "falcon-mamba-7b":
+        kw = dict(corpus=LM_CORPUS, seq_len=LM_SEQ, layers=LM_LAYERS,
+                  batch=LM_BATCH)
+    else:
+        kw = dict(corpus=HY_CORPUS, seq_len=HY_SEQ, layers=HY_LAYERS,
+                  batch=HY_BATCH, eval_rows=HY_EVAL_ROWS)
+    out = {}
+    for plane in ("host", "plane"):
+        spec = lm_spec(api, arch=arch, reduced=False, policy="fixed_steps",
+                       n0=kw["corpus"] // 2, fixed=SHORT_STEPS, plane=plane,
+                       **kw)
+        sess = api.build(spec, device="cuda")
+        torch.cuda.synchronize()
+        ops.reset_calls()
+        t0 = time.perf_counter()
+        tr = sess.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out[plane] = {"trace": tr, "launches": dict(ops.CALLS), "wall": wall,
+                      "checksum": checksum(torch, rt, tr.params),
+                      "meter": tr.meta.get("data_plane")}
+        if plane == "plane":
+            plane_meter_checks(f"{arch} plane", sess, tr)
+        tr.params = None
+        del sess
+        gc.collect()
+        torch.cuda.empty_cache()
+    h, p = out["host"], out["plane"]
+    differ = bitwise_diff(run_record(p["trace"]), run_record(h["trace"]))
+    if p["checksum"] != h["checksum"]:
+        differ.append("params")
+    if p["launches"] != h["launches"]:
+        differ.append("launches")
+    ptr = p["trace"]
+    row = {"path": "lm_plane_vs_host", "arch": arch,
+           "steps": len(ptr.points), "stages": ptr.meta["stages"],
+           "loss_per_stage": [[q.f_window for q in ptr.points
+                               if q.stage == st]
+                              for st in sorted(set(ptr.column("stage")))],
+           "f_full": ptr.column("f_full"), "launches": p["launches"],
+           "host_path_launches": h["launches"],
+           "meter": {k: v for k, v in p["meter"].items()
+                     if isinstance(v, int)},
+           "wall_s": p["wall"], "host_path_wall_s": h["wall"],
+           "param_leaves": len(p["checksum"]),
+           "differs_from_host_path": differ}
+    emit(row)
+    if differ:
+        fail_later(f"{arch}: the plane differs from the host path in "
+                   f"{differ}")
+    return row
+
+
+class Killed(Exception):
+    """Ends a run at a stage boundary, after its checkpoint is written."""
+
+
+def timed_checkpoints(torch, sess, rec: dict) -> None:
+    """Time each checkpoint the session writes and reads (host clock,
+    ended by the file write or by the tensors' landing on the card)."""
+    ck = sess.checkpointer
+    save, restore = ck.save, ck.restore
+
+    def timed_save(end):
+        t0 = time.perf_counter()
+        path = save(end)
+        rec.setdefault("write_s", []).append(time.perf_counter() - t0)
+        rec["bytes"] = sum(os.path.getsize(path.with_suffix(x))
+                           for x in (".npz", ".json"))
+        return path
+
+    def timed_restore(*a):
+        t0 = time.perf_counter()
+        out = restore(*a)
+        torch.cuda.synchronize()
+        rec.setdefault("read_s", []).append(time.perf_counter() - t0)
+        return out
+
+    ck.save, ck.restore = timed_save, timed_restore
+
+
+def kill_and_resume(torch, rt, spec, kill_stage: int, cols) -> dict:
+    """``spec`` run whole, then run with stage checkpoints in a temporary
+    directory and killed after ``kill_stage``, then resumed from disk in a
+    fresh session (``resume_session``): the stitched run held bitwise
+    against the whole one (the columns, extras, transfers, overshoot and
+    the final parameters' checksum), the rewarm record the stage's
+    window, the kernels' launches of the two pieces summing to the whole
+    run's.  The directory is deleted at the end."""
+    api, ops = rt["api"], rt["ops"]
+    sess = api.build(spec, device="cuda")
+    torch.cuda.synchronize()
+    ops.reset_calls()
+    whole = sess.run()
+    torch.cuda.synchronize()
+    launches = {"whole": dict(ops.CALLS)}
+    whole_sum = checksum(torch, rt, whole.params)
+    whole.params = None
+    del sess
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = {}
+    with tempfile.TemporaryDirectory(dir=rt["build_dir"]) as d:
+        sess = api.build(spec.replace(checkpoint=spec.checkpoint.replace(
+            directory=d)), device="cuda")
+        timed_checkpoints(torch, sess, rec)
+
+        def die(end):
+            if end.info.stage == kill_stage:
+                raise Killed
+
+        sess.on_stage(die)
+        ops.reset_calls()
+        try:
+            sess.run()
+        except Killed:
+            pass
+        else:
+            raise SystemExit("the killed run ran to its end")
+        torch.cuda.synchronize()
+        launches["killed"] = dict(ops.CALLS)
+        del sess
+        gc.collect()
+        torch.cuda.empty_cache()
+        resumed = api.resume_session(d, device="cuda")
+        timed_checkpoints(torch, resumed, rec)
+        ops.reset_calls()
+        t0 = time.perf_counter()
+        tr = resumed.run()
+        torch.cuda.synchronize()
+        resume_wall = time.perf_counter() - t0
+        launches["resumed"] = dict(ops.CALLS)
+        points = resumed.restored.trace_points()
+        n_t = resumed.restored.n_t
+        left = sorted(os.listdir(d))
+    differ = bitwise_diff(run_record(tr, cols, before=points),
+                          run_record(whole, cols))
+    resumed_sum = checksum(torch, rt, tr.params)
+    if resumed_sum != whole_sum:
+        differ.append("params")
+    pieces = {k: launches["killed"].get(k, 0) + launches["resumed"].get(k, 0)
+              for k in launches["whole"]}
+    rewarm = tr.meta["resume_rewarm"]
+    row = {"resumed_from_stage": tr.meta["resumed_from_stage"],
+           "steps_before": len(points), "steps_after": len(tr.points),
+           "n_t": n_t, "rewarm": rewarm,
+           "data_plane": {k: v for k, v in tr.meta["data_plane"].items()
+                          if isinstance(v, int)},
+           "launches": launches, "checkpoint_bytes": rec.get("bytes"),
+           "checkpoint_write_s": rec.get("write_s"),
+           "checkpoint_read_s": rec.get("read_s"),
+           "checkpoints_left_on_disk": left,
+           "resumed_wall_s": resume_wall,
+           "f_full_final": tr.final().f_full,
+           "differs_from_whole_run": differ}
+    if differ:
+        fail_later(f"resume of {spec.name}: differs from the whole run in "
+                   f"{differ}")
+    if rewarm.get("examples_loaded") != n_t:
+        fail_later(f"resume of {spec.name}: rewarm loaded "
+                   f"{rewarm.get('examples_loaded')} examples, the stage's "
+                   f"window is {n_t}")
+    if pieces != launches["whole"]:
+        fail_later(f"resume of {spec.name}: launches {pieces} in two "
+                   f"pieces, {launches['whole']} whole")
+    for k in ("examples_loaded", "examples_uploaded", "examples_accessed"):
+        if tr.meta["data_plane"][k] != whole.meta["data_plane"][k]:
+            fail_later(f"resume of {spec.name}: {k} "
+                       f"{tr.meta['data_plane'][k]} against the whole run's "
+                       f"{whole.meta['data_plane'][k]}")
+    return row
+
+
+def resume_phase(torch, rt) -> dict:
+    """Kill-and-resume on the plane: quickstart@6 two-track killed after
+    stage 1; falcon-mamba-7b two-track at full width, one layer, killed
+    after stage 1 with one checkpoint kept."""
+    api = rt["api"]
+    data, base = quickstart_specs(api)
+    convex = api.RunSpec(
+        name="convex_two_track", policy=api.PolicySpec(
+            "two_track", {"final_steps": 20}),
+        **dict(base, data=data.replace(plane="plane")))
+    row = kill_and_resume(torch, rt, convex, 1, CONVEX_COLUMNS)
+    emit({"path": "resume", "run": "convex", **row})
+    lm = lm_spec(api, reduced=False, policy="two_track",
+                 corpus=RESUME_CORPUS, seq_len=LM_SEQ, n0=RESUME_N0,
+                 max_stage_iters=RESUME_ITERS, layers=RESUME_LAYERS)
+    lm = lm.replace(checkpoint=api.CheckpointSpec(keep=1))
+    lm_row = kill_and_resume(torch, rt, lm, 1, CONVEX_COLUMNS)
+    emit({"path": "resume", "run": "falcon-mamba-7b", "layers": RESUME_LAYERS,
+          **lm_row})
+    return {"convex": row, "lm": lm_row}
+
+
 # SASS opcodes that show which units a kernel runs on: HGMMA (wgmma),
 # UTMALDG (TMA loads), SYNCS (mbarrier waits), HMMA and LDSM (mma.sync
 # and ldmatrix), MUFU.EX2 (the SFU's exp2)
@@ -1360,16 +1752,19 @@ def main() -> None:
     sys.path.insert(0, str(root / "src"))
     from repro_torch import api
     from repro_torch.data import synthetic
+    from repro_torch.data.device_window import window_rows
     from repro_torch.kernels import build, linear_grad, ops, ref
     from repro_torch.launch import methods
     from repro_torch.models import linear
     from repro_torch.models import transformer
     from repro_torch.optim import adam
     from repro_torch.optim.api import tree_leaves, tree_map
+    build_dir = root / "build"
+    build_dir.mkdir(exist_ok=True)
     rt = dict(api=api, synthetic=synthetic, linear_grad=linear_grad,
               ops=ops, ref=ref, linear=linear, transformer=transformer,
               adam=adam, tree_map=tree_map, tree_leaves=tree_leaves,
-              methods=methods)
+              methods=methods, window_rows=window_rows, build_dir=build_dir)
 
     # 1. environment
     smi = subprocess.run(
@@ -1401,9 +1796,13 @@ def main() -> None:
     attn_row = attention_kernel_phase(torch, rt)
     # 3. the main paths, each with its own launch counts
     launches = main_path_phase(torch, rt)
+    plane_launches = convex_plane_phase(torch, rt)
     method_launches = convex_methods_phase(torch, rt)
+    lm_plane_vs_host_phase(torch, rt, "falcon-mamba-7b")
     lm = lm_main_path_phase(torch, rt)
+    lm_plane_vs_host_phase(torch, rt, "recurrentgemma-9b")
     hybrid = hybrid_main_path_phase(torch, rt)
+    resume_phase(torch, rt)
     # 4. card against CPU
     card_vs_cpu_phase(torch, rt)
     lm_card_vs_cpu_phase(torch, rt, "falcon-mamba-7b")
@@ -1417,6 +1816,7 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/linear_grad.cu",
         "replaces": "src/repro/kernels/linear_grad.py:50",
         "launches": launches,
+        "launches_convex_plane": plane_launches,
         "launches_convex_methods": method_launches,
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],

@@ -17,9 +17,12 @@ from ..optim.api import BatchOptimizer
 class LMStepOptimizer(BatchOptimizer):
     """The LM train step as a BatchOptimizer over token windows.
 
-    ``data`` is the resident (n_t, seq_len+1) token window; the step gathers
-    a rotating mini-batch from it on the device (its counter ``t`` is a
-    device tensor), so a stage's steps queue without host round-trips.
+    ``data`` is the resident token window: the host path's (n_t,
+    seq_len+1) slice or the plane's ``MaskedWindow`` (rotation through the
+    valid prefix gathers the same rows from both).  The step gathers a
+    rotating mini-batch from it on the device (its counter ``t`` and the
+    plane's valid length are device tensors), so a stage's steps queue
+    without host round-trips.
     ``reset_memory`` is inherited as the identity: Adam moments survive
     batch expansions."""
     train_step: Callable = None
@@ -41,7 +44,8 @@ class LMStepOptimizer(BatchOptimizer):
 @dataclasses.dataclass
 class TokenWindows:
     """Host-slice view of a pre-permuted token corpus: nested prefix windows
-    of one permutation (§3.3's data-access contract)."""
+    of one permutation (§3.3's data-access contract).  The path the
+    streaming plane is held bit-exact against (``plane="host"``)."""
     tokens: Any                    # (N, seq_len+1) int32, on the device
 
     @property
@@ -54,9 +58,10 @@ class TokenWindows:
 
 def make_lm_objective(cfg, eval_rows: int = 64, *, impl: str = "xla"):
     """loss(params, token block) on a fixed-size probe of the block: always
-    ``eval_rows`` rows of the block's prefix, wrapping when the block is
+    ``eval_rows`` rows of the block's valid prefix, wrapping when it is
     smaller, so the two-track condition (3) compares at a constant sample
-    size.  ``impl`` is the train step's, so the probe measures the function
+    size and a host-path slice and the plane's ``MaskedWindow`` probe the
+    same rows.  ``impl`` is the train step's, so the probe measures the function
     the optimizer descends."""
     def objective(params, toks):
         probe = probe_rows(toks, eval_rows)

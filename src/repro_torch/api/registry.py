@@ -1,5 +1,5 @@
-"""Named registries — every ported policy and optimizer is addressable
-from a spec by name.
+"""Named registries — every ported policy, optimizer and shard store is
+addressable from a spec by name.
 
 A name the reference registers but this port does not carry yet raises a
 :class:`SpecError` that says so and names the slice that brings it,
@@ -13,6 +13,7 @@ from typing import Any
 
 from ..core.engine import (ComposedPolicy, ExpansionPolicy, FixedSteps,
                            GradientVariance, NeverExpand, TwoTrack)
+from ..data.shards import InMemoryShardStore, MemmapShardStore, ThrottledStore
 from ..optim import REGISTRY as _OPTIM_REGISTRY
 from ..optim.api import BatchOptimizer
 from .specs import OptimizerSpec, PolicySpec, SpecError
@@ -72,6 +73,12 @@ LM_OPTIMIZER = "adamw_lm"
 OPTIMIZERS = Registry("optimizer",
                       {**_OPTIM_REGISTRY, LM_OPTIMIZER: LM_OPTIMIZER})
 
+# ------------------------------------------------------------------- stores
+STORES = Registry("store", {
+    "memory": InMemoryShardStore,
+    "memmap": MemmapShardStore,
+})
+
 
 # ----------------------------------------------------------------- builders
 def build_policy(spec: PolicySpec) -> ExpansionPolicy:
@@ -122,3 +129,21 @@ def optimizer_spec_of(opt: BatchOptimizer) -> OptimizerSpec:
     params = {f.name: getattr(opt, f.name)
               for f in dataclasses.fields(opt) if f.name != "name"}
     return OptimizerSpec(name=opt.name, params=params)
+
+
+def make_store(spec_store: str, array, shard_size: int, *,
+               workdir: str | None = None, field: str = "data",
+               delay_s: float = 0.0):
+    """One field array -> a ShardStore per the DataSpec's storage knobs."""
+    STORES.get(spec_store)          # raises with the registered names
+    if spec_store == "memory":
+        store = InMemoryShardStore(array, shard_size)
+    else:
+        if workdir is None:
+            raise SpecError("store='memmap' needs DataSpec.workdir (the "
+                            "shard directory)")
+        store = MemmapShardStore.write(array, f"{workdir}/{field}",
+                                       shard_size)
+    if delay_s > 0:
+        store = ThrottledStore(store, delay_s)
+    return store

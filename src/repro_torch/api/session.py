@@ -3,23 +3,27 @@ stack the spec describes.
 
 The port carries two branches on one device: the convex one, the paper's
 own loop (a synthetic ``PAPER_LIKE`` problem, the Eq. 1 objective, a
-ported inner optimizer and policy), and the LM one on the host-slice
-token path (``DataSpec(kind="lm", plane="host")``) for the model families
-ported so far (``workloads/families.py``).  ``build`` validates the spec
+ported inner optimizer and policy), and the LM one for the model families
+ported so far (``workloads/families.py``).  Either serves its data
+through the host-slice path (``DataSpec(plane="host")``) or the streaming
+data plane (``plane="plane"``: shard stores, a prefetcher and a
+device-resident window, ``data/plane.py``), and either writes stage
+checkpoints (``CheckpointSpec``) that ``resume_session`` or
+``Session.resume`` continue bit for bit.  ``build`` validates the spec
 eagerly: unknown names and invalid combinations fail with a
 :class:`SpecError` as in the reference, and every branch a later slice
-brings (the streaming plane, multiple hosts, tiering, elastic faults,
-checkpoints, observability, serving, the other model families) fails
-with a :class:`SpecError` that names it.
+brings (multiple hosts, tiering, elastic faults, observability, serving,
+the other model families) fails with a :class:`SpecError` that names it.
 
-``device`` is a keyword of ``build`` and ``convex_problem``, not a spec
-field, so the ``RunSpec`` JSON schema stays the reference's.  It defaults
-to ``"cuda"``; with no card, the call raises rather than run on the CPU.
+``device`` is a keyword of ``build``, ``resume_session`` and
+``convex_problem``, not a spec field, so the ``RunSpec`` JSON schema
+stays the reference's.  It defaults to ``"cuda"``; with no card, the call
+raises rather than run on the CPU.
 """
 from __future__ import annotations
 
-import dataclasses
 import functools
+import pathlib
 from typing import Callable
 
 import numpy as np
@@ -29,14 +33,17 @@ from .. import configs
 from ..core.engine import BETSchedule, BetEngine, StageEnd, StageInfo
 from ..core.timemodel import SimulatedClock
 from ..core.trace import Trace
-from ..data.synthetic import PAPER_LIKE, load, make_classification
+from ..data.plane import StreamingDataset
+from ..data.synthetic import PAPER_LIKE, Dataset, classification_arrays
 from ..data.window import synth_corpus
 from ..device import resolve_device
+from ..elastic.checkpoint import StageCheckpointer, peek_stage_meta
 from ..models.common import ModelConfig
 from ..models.linear import LOSSES, init_params, make_objective
 from ..workloads.families import resolve_family
 from .lm import TokenWindows
-from .registry import LM_OPTIMIZER, OPTIMIZERS, build_optimizer, build_policy
+from .registry import (LM_OPTIMIZER, OPTIMIZERS, STORES, build_optimizer,
+                       build_policy, make_store)
 from .specs import DataSpec, ModelSpec, RunSpec, SpecError, TieringSpec
 
 
@@ -50,25 +57,29 @@ _SERVING_FIELDS = dict(plane="host", store="memory", workdir=None,
 
 
 @functools.lru_cache(maxsize=8)
-def _convex_problem(data: DataSpec, device: str):
+def _convex_arrays(data: DataSpec) -> tuple:
+    """The workload's numpy arrays ``(X, y, X_test, y_test)``, made from the
+    seed once: the device tensors and the plane's shard stores both come
+    from them."""
     if data.dataset not in PAPER_LIKE:
         raise SpecError(f"unknown convex dataset {data.dataset!r}; "
                         f"available: {sorted(PAPER_LIKE)}")
     if data.loss not in LOSSES:
         raise SpecError(f"unknown loss {data.loss!r}; "
                         f"available: {sorted(LOSSES)}")
-    if data.condition_boost or data.generator:
-        cfg = dict(PAPER_LIKE[data.dataset])
-        cfg["n"] = max(64, int(cfg["n"] * data.scale))
-        if data.condition_boost:
-            cfg["condition"] = cfg.get("condition", 10.0) * 10
-        cfg.update(dict(data.generator))
-        ds = make_classification(data.dataset, seed=data.seed, device=device,
-                                 **cfg)
-    else:
-        ds = load(data.dataset, seed=data.seed, scale=data.scale,
-                  device=device)
-    ds = dataclasses.replace(ds, spec=data.to_dict())
+    cfg = dict(PAPER_LIKE[data.dataset])
+    cfg["n"] = max(64, int(cfg["n"] * data.scale))
+    if data.condition_boost:
+        cfg["condition"] = cfg.get("condition", 10.0) * 10
+    cfg.update(dict(data.generator))
+    return classification_arrays(seed=data.seed, **cfg)
+
+
+@functools.lru_cache(maxsize=8)
+def _convex_problem(data: DataSpec, device: str):
+    arrays = _convex_arrays(data)
+    ds = Dataset(data.dataset, *(torch.from_numpy(a).to(device)
+                                 for a in arrays), spec=data.to_dict())
     objective = make_objective(data.loss, lam=data.lam)
     return ds, objective, init_params(ds.d, device=device)
 
@@ -104,10 +115,6 @@ def _validate(spec: RunSpec) -> None:
         raise SpecError(f"TopologySpec.hosts must be >= 1, got {hosts}")
 
     # branches later slices bring
-    if d.plane == "plane":
-        raise _not_ported("the streaming data plane (DataSpec.plane="
-                          "'plane')", "the data-plane slice (ROADMAP "
-                          "queue A6)")
     if hosts > 1:
         raise _not_ported(f"a {hosts}-host topology",
                           "the distributed slice (ROADMAP queue A8)")
@@ -116,10 +123,8 @@ def _validate(spec: RunSpec) -> None:
                           "the tiered-corpus slice (ROADMAP queue A11)")
     if spec.elastic.active:
         raise _not_ported("elastic fault tolerance (ElasticSpec)",
-                          "the elastic slice (ROADMAP queue A7)")
-    if spec.checkpoint.directory or spec.checkpoint.resume:
-        raise _not_ported("stage checkpoints (CheckpointSpec)",
-                          "the elastic slice (ROADMAP queue A7)")
+                          "the elastic slice (ROADMAP queue A7, after the "
+                          "distributed runtime of A8)")
     if spec.obs.enabled or spec.obs.fleet or spec.obs.health:
         raise _not_ported("observability (ObsSpec)",
                           "the observability slice (ROADMAP queue A11)")
@@ -127,10 +132,8 @@ def _validate(spec: RunSpec) -> None:
         raise _not_ported("serve-while-you-train (ServeSpec)",
                           "the serve slice (ROADMAP queue A11)")
 
-    # the reference's checks that apply to a convex single-host run
-    if d.store not in ("memory", "memmap"):
-        raise SpecError(f"unknown store {d.store!r}; registered names: "
-                        f"['memmap', 'memory']")
+    # the reference's checks that apply to a single-host run
+    STORES.get(d.store)
     if spec.topology.kind not in ("simulated", "process"):
         raise SpecError(f"unknown topology {spec.topology.kind!r}; "
                         f"registered names: ['process', 'simulated']")
@@ -151,6 +154,9 @@ def _validate(spec: RunSpec) -> None:
     if not spec.elastic.capacity_slack >= 1.0:
         raise SpecError(f"capacity_slack must be >= 1, "
                         f"got {spec.elastic.capacity_slack}")
+    if spec.checkpoint.resume and not spec.checkpoint.directory:
+        raise SpecError("CheckpointSpec.resume needs a checkpoint "
+                        "directory (--ckpt-dir) to restore from")
 
     if d.kind == "lm":
         if spec.model is None:
@@ -212,6 +218,14 @@ def _step_cost(spec: RunSpec, optimizer) -> Callable[[int], int] | None:
     return lambda n_t: batch
 
 
+def _make_checkpointer(spec: RunSpec) -> StageCheckpointer | None:
+    ck = spec.checkpoint
+    if not ck.directory:
+        return None
+    return StageCheckpointer(ck.directory, keep=ck.keep, every=ck.every,
+                             spec=spec.to_dict())
+
+
 def _make_engine(spec: RunSpec, optimizer) -> BetEngine:
     return BetEngine(
         schedule=BETSchedule(n0=spec.schedule.n0, growth=spec.schedule.growth),
@@ -220,28 +234,58 @@ def _make_engine(spec: RunSpec, optimizer) -> BetEngine:
         carry_state=spec.schedule.carry_state)
 
 
+def _stores(data: DataSpec, arrays: dict) -> list:
+    return [make_store(data.store, arr, data.shard_size,
+                       workdir=data.workdir, field=name,
+                       delay_s=data.delay_ms * 1e-3)
+            for name, arr in arrays.items()]
+
+
 def _build_convex(spec: RunSpec, policy, device: torch.device) -> "Session":
-    ds, objective, w0 = convex_problem(spec.data, device=device)
+    data = spec.data
+    ds, objective, w0 = convex_problem(data, device=device)
+    if data.plane == "plane":
+        # the stores hold the generator's numpy arrays, never a copy of the
+        # device tensors; full-data evals stay on (ds.X, ds.y), as in the
+        # reference: the whole corpus on the device from the build on,
+        # beside the window, its upload not metered
+        X, y = _convex_arrays(data.replace(**_SERVING_FIELDS))[:2]
+        dataset = StreamingDataset(
+            _stores(data, {"X": X, "y": y}), growth=spec.schedule.growth,
+            prefetch_workers=data.prefetch_workers, device=device)
+    else:
+        dataset = ds
     optimizer = build_optimizer(spec.optimizer)
-    return Session(spec, dataset=ds, optimizer=optimizer,
+    return Session(spec, dataset=dataset, optimizer=optimizer,
                    objective=objective, policy=policy,
                    engine=_make_engine(spec, optimizer),
                    clock=SimulatedClock(**spec.schedule.clock), w0=w0,
-                   eval_data=(ds.X, ds.y), problem=ds, device=device)
+                   eval_data=(ds.X, ds.y),
+                   checkpointer=_make_checkpointer(spec), problem=ds,
+                   device=device)
 
 
 def _build_lm(spec: RunSpec, policy, device: torch.device) -> "Session":
-    """The reference's host-plane LM build (``TokenWindows``): the numpy
-    corpus from ``data.seed`` (bit-identical to the reference's), an eval
-    probe sliced from it on the host, and the family's parameters, train
-    step and probe objective on ``device``."""
+    """The reference's single-host LM build: the numpy corpus from
+    ``data.seed`` (bit-identical to the reference's) served through the
+    host-slice path (``TokenWindows``) or the streaming plane (a masked
+    window), an eval probe sliced from it on the host, and the family's
+    parameters, train step and probe objective on ``device``."""
     data = spec.data
     cfg = lm_config(spec.model)
     family = resolve_family(spec.model, cfg)
     corpus = synth_corpus(data.corpus_size, data.seq_len + 1,
                           max(2, cfg.vocab_size), seed=data.seed)
+    # eval probe sliced on the host: the plane path must not ship the whole
+    # corpus to the device just to build it — the DeviceWindow streams that
     eval_np = corpus[:: max(1, len(corpus) // data.eval_rows)][: data.eval_rows]
-    dataset = TokenWindows(torch.from_numpy(corpus).to(device))
+    if data.plane == "plane":
+        dataset = StreamingDataset(
+            _stores(data, {"tokens": corpus}), masked=True,
+            growth=spec.schedule.growth,
+            prefetch_workers=data.prefetch_workers, device=device)
+    else:
+        dataset = TokenWindows(torch.from_numpy(corpus).to(device))
     eval_tokens = torch.from_numpy(np.ascontiguousarray(eval_np)).to(device)
     params = family.build_params(cfg, data.seed, device=device)
     optimizer = family.step(
@@ -254,7 +298,9 @@ def _build_lm(spec: RunSpec, policy, device: torch.device) -> "Session":
                    objective=objective, policy=policy,
                    engine=_make_engine(spec, optimizer),
                    clock=SimulatedClock(**spec.schedule.clock), w0=params,
-                   eval_data=eval_tokens, device=device, model_config=cfg)
+                   eval_data=eval_tokens,
+                   checkpointer=_make_checkpointer(spec), device=device,
+                   model_config=cfg)
 
 
 def build(spec: RunSpec | dict, *, device="cuda") -> "Session":
@@ -270,19 +316,69 @@ def build(spec: RunSpec | dict, *, device="cuda") -> "Session":
     return _build_convex(spec, policy, dev)
 
 
+# --------------------------------------------------------------------- resume
+# the spec fields that determine what a checkpoint's numbers *mean*: the
+# corpus and its serving layer, the host topology, the model shapes and the
+# stage schedule.  A resume under different values of any of these would
+# restore cursors/meters into a silently different run.
+_RESUME_CRITICAL = ("data", "topology", "model", "schedule")
+
+
+def check_resume_spec(spec: RunSpec, stored: dict) -> None:
+    """Raise :class:`SpecError` when the caller-supplied spec disagrees
+    with the spec stored in the checkpoint on any resume-critical field."""
+    have = spec.to_dict()
+    bad = [k for k in _RESUME_CRITICAL if have.get(k) != stored.get(k)]
+    if bad:
+        detail = "; ".join(
+            f"{k}: checkpoint has {stored.get(k)!r}, caller has "
+            f"{have.get(k)!r}" for k in bad)
+        raise SpecError(
+            f"resume spec mismatch on {bad}: the checkpoint was taken "
+            f"under a different {'/'.join(bad)} configuration — resume "
+            f"with repro_torch.api.resume_session(directory) to rebuild "
+            f"from the stored spec, or fix the caller spec ({detail})")
+
+
+def resume_session(directory, *, device="cuda") -> "Session":
+    """Build a :class:`Session` on ``device`` entirely from the spec stored
+    in the latest stage checkpoint under ``directory`` — the checkpoint,
+    not the caller, says what the run is.  The session is returned ready
+    to ``run()`` (its spec has ``checkpoint.resume=True``)."""
+    d = pathlib.Path(directory)
+    ckpts = sorted(d.glob("stage_*.npz"))
+    if not ckpts:
+        raise FileNotFoundError(f"no stage checkpoint under {d}")
+    stored = peek_stage_meta(ckpts[-1].with_suffix("")).get("spec")
+    if stored is None:
+        raise SpecError(
+            f"checkpoint {ckpts[-1]} carries no spec (it was saved by a "
+            f"bare StageCheckpointer, not a Session) — rebuild the stack "
+            f"explicitly and call Session.resume()")
+    spec = RunSpec.from_dict(stored)
+    spec = spec.replace(checkpoint=spec.checkpoint.replace(
+        directory=str(d), resume=True))
+    return build(spec, device=device)
+
+
 # -------------------------------------------------------------------- session
 class Session:
     """The composed BET stack for one RunSpec.
 
     Components are public (``dataset``, ``optimizer``, ``objective``,
     ``policy``, ``engine``, ``clock``) so drivers and tests can instrument
-    them before ``run()``.  A session drives one run: ``run()`` executes
-    the schedule and leaves the result in ``trace``; ``stage_ends``
-    records every stage boundary."""
+    them before ``run()``; the session owns their lifecycle (the data
+    plane is closed when the run finishes, even on error).
+
+    A session drives one run: ``run()`` (or ``resume()``, which ``run()``
+    delegates to when the spec says so) executes the schedule and leaves
+    the result in ``trace``; ``stage_ends`` records every stage boundary,
+    and ``on_stage(cb)`` registers extra boundary callbacks (after the
+    checkpointer)."""
 
     def __init__(self, spec: RunSpec, *, dataset, optimizer, objective,
-                 policy, engine, clock, w0, eval_data, problem=None,
-                 device=None, model_config=None):
+                 policy, engine, clock, w0, eval_data, checkpointer=None,
+                 problem=None, device=None, model_config=None):
         self.spec = spec
         self.dataset = dataset
         self.optimizer = optimizer
@@ -292,12 +388,21 @@ class Session:
         self.clock = clock
         self.w0 = w0
         self.eval_data = eval_data
+        self.checkpointer = checkpointer
         self.problem = problem          # convex: the synthetic Dataset
         self.device = device
         self.model_config = model_config    # LM: the ModelConfig
         self.trace: Trace | None = None
+        self.restored = None            # RestoredRun after resume()
         self.stage_ends: list[dict] = []
+        self._callbacks: list[Callable] = []
         engine.stage_callback = self._stage_end
+
+    # ------------------------------------------------------------- boundaries
+    def on_stage(self, callback: Callable[[StageEnd], None]) -> None:
+        """Register an extra stage-boundary callback (runs after the
+        checkpointer, in registration order)."""
+        self._callbacks.append(callback)
 
     def _stage_end(self, end: StageEnd) -> None:
         self.stage_ends.append({
@@ -305,6 +410,10 @@ class Session:
             "n_next": end.info.n_next, "is_final": end.info.is_final,
             "step_count": end.step_count, "stages": end.stages,
             "transfers": end.transfers, "overshoot": end.overshoot})
+        if self.checkpointer is not None:
+            self.checkpointer(end)
+        for cb in self._callbacks:
+            cb(end)
 
     def stage_plan(self) -> list[StageInfo]:
         """The stages the schedule + policy will run (before running)."""
@@ -313,17 +422,79 @@ class Session:
     # -------------------------------------------------------------- execution
     def run(self, *, progress: Callable | None = None,
             probe: Callable | None = None) -> Trace:
-        """Execute the run the spec describes and return the trace.
-        ``probe(w)`` is the engine's per-step measurement hook (it gets the
-        host copy of each step's parameters)."""
+        """Execute the run the spec describes (resuming when the spec's
+        CheckpointSpec says so) and return the trace.  ``probe(w)`` is the
+        engine's per-step measurement hook (it gets the host copy of each
+        step's parameters)."""
+        if self.spec.checkpoint.resume:
+            return self.resume(progress=progress, probe=probe)
+        return self._run(progress=progress, probe=probe,
+                         run_kw={"w0": self.w0})
+
+    def resume(self, *, progress: Callable | None = None,
+               probe: Callable | None = None) -> Trace:
+        """Restore the latest stage checkpoint and continue the schedule
+        (bit-compatible cursor/clock/meter state; the restart's re-read is
+        reported as ``trace.meta['resume_rewarm']``)."""
+        if self.checkpointer is None:
+            raise SpecError("resume needs CheckpointSpec.directory")
+        latest = self.checkpointer.latest()
+        if latest is None:
+            raise FileNotFoundError(
+                f"resume: no stage checkpoint under "
+                f"{self.spec.checkpoint.directory}")
+        # the checkpoint's stored spec, not the caller's word, decides
+        # whether this session matches the checkpointed run
+        stored = peek_stage_meta(latest).get("spec")
+        if stored is not None:
+            check_resume_spec(self.spec, stored)
+        restored = self.checkpointer.restore(
+            self.w0, self.optimizer.init(self.w0))
+        self.restored = restored
+        restored.restore_clock(self.clock)
+        rewarm = restored.restore_dataset(self.dataset)
+        trace = self._run(progress=progress, probe=probe, run_kw={
+            "w0": restored.params, "opt_state0": restored.opt_state,
+            "resume": restored.resume})
+        trace.meta["resume_rewarm"] = rewarm
+        return trace
+
+    def _run(self, *, progress, probe, run_kw) -> Trace:
         spec = self.spec
         meta = dict(spec.meta)
         if self.model_config is not None:
             meta.setdefault("arch", self.model_config.name)
-        self.trace = self.engine.run(
-            self.dataset, self.optimizer, self.objective, self.policy,
-            w0=self.w0, clock=self.clock, eval_data=self.eval_data,
-            trace_name=None if spec.name == "run" else spec.name,
-            meta=meta or None, progress=progress, probe=probe)
-        return self.trace
+        try:
+            trace = self.engine.run(
+                self.dataset, self.optimizer, self.objective, self.policy,
+                clock=self.clock, eval_data=self.eval_data,
+                trace_name=None if spec.name == "run" else spec.name,
+                meta=meta or None, progress=progress, probe=probe, **run_kw)
+        finally:
+            self.close()
+        meter = getattr(self.dataset, "meter", None)
+        if meter is not None:
+            trace.meta["data_plane"] = meter.snapshot()
+        self.trace = trace
+        return trace
 
+    # ------------------------------------------------------------------ state
+    @property
+    def meters(self) -> dict:
+        """Clock + real-I/O accounting snapshots (Thm 4.1's counters)."""
+        out = {"clock": self.clock.snapshot()}
+        meter = getattr(self.dataset, "meter", None)
+        if meter is not None:
+            out["data_plane"] = meter.snapshot()
+        return out
+
+    def close(self) -> None:
+        close = getattr(self.dataset, "close", None)
+        if close is not None:
+            close()
+
+    def __enter__(self) -> "Session":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

@@ -3,8 +3,9 @@
 # mini-batch baselines, the §4.2 simulated time model, and Thm 4.1 algebra —
 # all driven by the unified policy engine in engine.py.
 from .engine import (BETSchedule, BetEngine, ComposedPolicy, ExpansionPolicy,
-                     FixedSteps, GradientVariance, NeverExpand, StageEnd,
-                     StageInfo, StageRecords, TwoTrack, variance_stats)
+                     FixedSteps, GradientVariance, NeverExpand, ResumeState,
+                     StageEnd, StageInfo, StageRecords, TwoTrack,
+                     variance_stats)
 from .dsm import run_dsm, run_minibatch
 from .timemodel import SimulatedClock
 from .trace import Point, Trace

@@ -92,7 +92,23 @@ class BETSchedule:
         return ns
 
 
-# --------------------------------------------------------------------- hooks
+# ------------------------------------------------------------- resume/hooks
+@dataclasses.dataclass(frozen=True)
+class ResumeState:
+    """Where a checkpointed run left off.  ``next_stage`` is the first stage
+    index to execute; the counters seed the engine context so step
+    numbering, stage counts, transfer and overshoot accounting continue
+    exactly where the uninterrupted run would be (Thm 4.1 bookkeeping
+    survives the restart).  The caller restores params, optimizer state,
+    clock and meters separately (elastic/checkpoint.py bundles all of
+    it)."""
+    next_stage: int
+    step_count: int = 0
+    stages: int = 0
+    transfers: int = 0
+    overshoot: int = 0
+
+
 @dataclasses.dataclass
 class StageEnd:
     """What the once-per-stage boundary hook sees: the stage, the carries
@@ -445,9 +461,13 @@ class BetEngine:
             policy: ExpansionPolicy, *, w0=None, clock: SimulatedClock | None = None,
             eval_data=None, probe: Callable | None = None,
             trace_name: str | None = None, meta: dict | None = None,
-            progress: Callable | None = None, opt_state0=None) -> Trace:
+            progress: Callable | None = None, opt_state0=None,
+            resume: ResumeState | None = None) -> Trace:
         clock = clock or SimulatedClock()
         N = dataset.n
+        # NB: with a StreamingDataset, omitting eval_data forces the whole
+        # corpus resident here (f̂ needs all N points) and defeats staged
+        # loading — pass an eval set/probe to keep the plane streaming.
         full_data = eval_data if eval_data is not None else dataset.window(N)
         w = w0 if w0 is not None else torch.zeros(
             (dataset.d,), dtype=torch.float32, device=full_data[0].device)
@@ -459,6 +479,13 @@ class BetEngine:
         ctx = {"trace": trace, "clock": clock, "cost": cost,
                "probe": probe, "progress": progress, "dataset": dataset,
                "step_count": 0, "transfers": 0, "stages": 0, "overshoot": 0}
+        first_stage = 0
+        if resume is not None:
+            ctx.update(step_count=resume.step_count,
+                       transfers=resume.transfers, stages=resume.stages,
+                       overshoot=resume.overshoot)
+            first_stage = resume.next_stage
+            trace.meta["resumed_from_stage"] = first_stage - 1
 
         # the live carry: only this list holds it, so each step's output
         # replaces its input and no earlier carry stays referenced
@@ -466,9 +493,11 @@ class BetEngine:
         del w, state
         if policy.kind == "two_track":
             self._run_two_track(ctx, dataset, optimizer, objective, policy,
-                                carry, full_data)
+                                carry, full_data, first_stage=first_stage)
         else:
             for info in self.stage_infos(policy, N):
+                if info.stage < first_stage:
+                    continue            # completed before the checkpoint
                 carry[1] = optimizer.reset_memory(carry[1])  # f̂_t changed
                 self._run_scan_stage(ctx, dataset, optimizer, objective,
                                      policy, info, carry, full_data)
@@ -502,6 +531,25 @@ class BetEngine:
                           if stage + 1 < len(windows) else None)
                 for stage, n_t in enumerate(windows)]
 
+    @staticmethod
+    def _acquire_window(dataset, n_t: int, n_next: int | None):
+        """Stage setup against the data plane: a ``StreamingDataset`` makes
+        the stage window device-resident and starts prefetching the *next*
+        expansion's shards (so their loads overlap this stage's compute);
+        plain datasets fall back to the host-slice window protocol."""
+        begin = getattr(dataset, "begin_stage", None)
+        if begin is not None:
+            return begin(n_t, n_next)
+        return dataset.window(n_t)
+
+    @staticmethod
+    def _note_access(ctx, examples: int) -> None:
+        """Report optimizer touches to the data plane's DataAccessMeter, in
+        the same units the SimulatedClock charges — real-read accounting."""
+        note = getattr(ctx["dataset"], "note_access", None)
+        if note is not None and examples:
+            note(examples)
+
     # ------------------------------------------------------------ scan stages
     def _run_chunk(self, ctx, optimizer, objective, carry: list, win,
                    full_data, k: int, *, eval_full: bool, probe_k: int = 0):
@@ -533,7 +581,7 @@ class BetEngine:
                         eval_full=None):
         """One stage from ``carry`` ([w, state], updated in place)."""
         eval_full = policy.eval_full if eval_full is None else eval_full
-        win = dataset.window(info.n_t)
+        win = self._acquire_window(dataset, info.n_t, info.n_next)
         if self.wait_on_expand:
             ctx["clock"].wait_for(info.n_t)
         probe_k = min(int(policy.probe), info.n_t) \
@@ -579,14 +627,18 @@ class BetEngine:
         n = len(fs)
         times = np.empty(n)
         accs = np.empty(n, dtype=np.int64)
+        touched = 0
         i = 0
         for clen in rec.chunk_lengths():
             for j in range(clen):
                 clock.batch_update(cost(info.n_t))
+                touched += cost(info.n_t)
                 if eval_charge and j == clen - 1:
                     clock.eval_pass(eval_charge)
+                    touched += eval_charge
                 times[i], accs[i] = clock.time, clock.data_accesses
                 i += 1
+        self._note_access(ctx, touched)
         every = max(1, int(policy.record_every))
         idx = [i for i in range(n) if i % every == 0 or i == n - 1]
         extras = None
@@ -663,16 +715,20 @@ class BetEngine:
         return w_slow, st_slow, out
 
     def _run_two_track(self, ctx, dataset, optimizer, objective,
-                       policy: TwoTrack, carry: list, full_data):
+                       policy: TwoTrack, carry: list, full_data, *,
+                       first_stage: int = 0):
         """The racing stages, then the final phase, from ``carry`` ([w,
-        state], updated in place)."""
+        state], updated in place); stages before ``first_stage`` ran before
+        a checkpoint and are skipped."""
         clock, cost, trace = ctx["clock"], ctx["cost"], ctx["trace"]
         w, state = carry
         carry.clear()
         *racing, final_info = self.stage_infos(policy, dataset.n)
         for info in racing:
+            if info.stage < first_stage:
+                continue                # completed before the checkpoint
             n_prev, n_t = info.n_prev, info.n_t
-            win_t = dataset.window(n_t)
+            win_t = self._acquire_window(dataset, n_t, info.n_next)
             win_prev = dataset.window(n_prev)  # resident prefix: no loads
             if self.wait_on_expand:
                 clock.wait_for(n_t)
@@ -714,17 +770,22 @@ class BetEngine:
             # plus one variance-probe eval at each race round's end
             times = np.empty(s)
             accs = np.empty(s, dtype=np.int64)
+            touched = 0
             i = 0
             for clen in rec.chunk_lengths():
                 for j in range(clen):
                     clock.batch_update(cost(n_t))
                     clock.batch_update(cost(n_prev))
+                    touched += cost(n_t) + cost(n_prev)
                     if policy.charge_condition_eval:
                         clock.eval_pass(cost(n_t))
+                        touched += cost(n_t)
                     if probe_k and j == clen - 1:
                         clock.eval_pass(probe_k)
+                        touched += probe_k
                     times[i], accs[i] = clock.time, clock.data_accesses
                     i += 1
+            self._note_access(ctx, touched)
             extras = [{"f_fast_on_t": float(rec.f_fast_on_t[i])}
                       for i in range(s)]
             if ctx["probe"] is not None:
@@ -743,6 +804,9 @@ class BetEngine:
             self._stage_boundary(ctx, info, w, state)
 
         # final phase: full window until the step budget is spent
+        if first_stage > final_info.stage:
+            carry[:] = (w, state)       # the checkpoint is past the final phase
+            return
         carry[:] = (w, optimizer.reset_memory(
             state if self.carry_state else optimizer.init(w)))
         del w, state

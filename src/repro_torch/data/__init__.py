@@ -1,2 +1,8 @@
 from .synthetic import Dataset, load, make_classification, PAPER_LIKE
-from .device_window import rolling_subwindow
+from .shards import (DataAccessMeter, InMemoryShardStore, MemmapShardStore,
+                     ShardLoadError, ShardStore, ThrottledStore,
+                     store_capacity)
+from .prefetch import Prefetcher
+from .device_window import (DeviceWindow, MaskedWindow, probe_rows,
+                            rolling_subwindow, rotation_rows, window_rows)
+from .plane import StreamingDataset

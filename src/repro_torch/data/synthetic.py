@@ -45,15 +45,12 @@ class Dataset:
         return self.X[:n_t], self.y[:n_t]
 
 
-def make_classification(name: str, n: int, d: int, *, seed: int = 0,
-                        test_n: int | None = None, noise: float = 0.1,
-                        condition: float = 10.0, sparsity: float = 0.0,
-                        device="cuda") -> Dataset:
-    """Linearly-separable-ish binary task: X ~ N(0, Σ) with eigen-spread
-    ``condition``; y = sign(Xw* + noise).  Rows are pre-permuted (generation
-    is i.i.d., so the identity permutation is already uniformly random —
-    matching the paper's random-permutation assumption)."""
-    dev = resolve_device(device)
+def classification_arrays(n: int, d: int, *, seed: int = 0,
+                          test_n: int | None = None, noise: float = 0.1,
+                          condition: float = 10.0, sparsity: float = 0.0
+                          ) -> tuple:
+    """The numpy arrays ``(X, y, X_test, y_test)`` of ``make_classification``
+    (float32): what the streaming plane's shard stores hold."""
     rng = np.random.default_rng(seed)
     test_n = test_n if test_n is not None else max(n // 4, 1)
     total = n + test_n
@@ -67,10 +64,23 @@ def make_classification(name: str, n: int, d: int, *, seed: int = 0,
     margins = X @ w_star + noise * rng.standard_normal(total).astype(np.float32)
     y = np.sign(margins).astype(np.float32)
     y[y == 0] = 1.0
+    return tuple(np.ascontiguousarray(a, np.float32)
+                 for a in (X[:n], y[:n], X[n:], y[n:]))
 
-    def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
-    return Dataset(name, put(X[:n]), put(y[:n]), put(X[n:]), put(y[n:]))
+
+def make_classification(name: str, n: int, d: int, *, seed: int = 0,
+                        test_n: int | None = None, noise: float = 0.1,
+                        condition: float = 10.0, sparsity: float = 0.0,
+                        device="cuda") -> Dataset:
+    """Linearly-separable-ish binary task: X ~ N(0, Σ) with eigen-spread
+    ``condition``; y = sign(Xw* + noise).  Rows are pre-permuted (generation
+    is i.i.d., so the identity permutation is already uniformly random —
+    matching the paper's random-permutation assumption)."""
+    dev = resolve_device(device)
+    arrays = classification_arrays(n, d, seed=seed, test_n=test_n,
+                                   noise=noise, condition=condition,
+                                   sparsity=sparsity)
+    return Dataset(name, *(torch.from_numpy(a).to(dev) for a in arrays))
 
 
 # Scale-matched stand-ins for the paper's Table 2 (shrunk to container scale;

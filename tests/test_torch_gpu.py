@@ -576,3 +576,60 @@ def test_baselines_on_card_match_cpu(method):
         assert gpu.column(col) == cpu.column(col), col
     np.testing.assert_allclose(gpu.column("f_full"), cpu.column("f_full"),
                                rtol=1e-4)
+
+
+# ------------------------------------------------------ streaming data plane
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+def test_device_window_appends_from_pinned_memory_bitwise(dtype):
+    """Appends of uneven chunks land on the card (a pinned copy, no wait
+    on the host) equal to a torch.cat of the same rows on the host, bit
+    for bit; a view taken before a later append keeps its values."""
+    _need_card()
+    from repro_torch.data.device_window import DeviceWindow
+    rng = np.random.default_rng(0)
+    chunks = [(rng.standard_normal((k, 257)) * 1e3).astype(dtype)
+              for k in (64, 1, 191, 256, 512)]
+    total = sum(len(c) for c in chunks)
+    win = DeviceWindow(capacity=total + 7, item_shape=(257,), dtype=dtype)
+    early = None
+    for c in chunks:
+        win.append(c)
+        if early is None:
+            early = win.slice(64)
+            early_host = early.cpu()
+    host = torch.cat([torch.from_numpy(c) for c in chunks])
+    assert win.buffer.is_cuda and win.n_valid == total
+    assert torch.equal(win.slice(total).cpu(), host)
+    assert torch.equal(win.buffer[total:].cpu(),
+                       torch.zeros((7, 257), dtype=host.dtype))
+    assert torch.equal(early.cpu(), early_host)
+    assert int(win.masked().n_valid) == total
+
+
+@pytest.mark.parametrize("policy", ["fixed_steps", "two_track"])
+def test_convex_plane_on_card_equals_the_host_path(policy):
+    """4,096 x 300 on the card: the plane and the host path give the same
+    trace, final w and kernel launches, bit for bit."""
+    _need_card()
+    out = {}
+    for plane in ("host", "plane"):
+        spec = P.RunSpec(
+            data=P.DataSpec(dataset="w8a_like", scale=0.5, lam=1e-3,
+                            plane=plane),
+            policy=P.PolicySpec(policy, {"final_steps": 8}),
+            optimizer=P.OptimizerSpec("newton_cg",
+                                      {"hessian_fraction": 0.2}),
+            schedule=P.ScheduleSpec(n0=128))
+        ops.reset_calls()
+        sess = P.build(spec, device="cuda")
+        out[plane] = (sess.run(), ops.CALLS["linear_value_grad"], sess)
+    (host, h_calls, _), (plane, p_calls, sess) = out["host"], out["plane"]
+    assert sess.dataset.n == 4096 and sess.dataset.windows[0].buffer.is_cuda
+    for col in ("step", "stage", "window", "time", "accesses", "f_window",
+                "f_full"):
+        assert plane.column(col) == host.column(col), col
+    assert torch.equal(plane.params, host.params)
+    assert p_calls == h_calls > 0
+    m = plane.meta["data_plane"]
+    assert m["examples_loaded"] == m["examples_uploaded"] == 4096
+    assert m["examples_accessed"] == sess.clock.data_accesses

@@ -55,16 +55,22 @@ LM = dict(data=R.DataSpec(kind="lm"),
 
 @pytest.mark.parametrize("change,needle", [
     (dict(LM, model=R.ModelSpec(arch="granite-moe-1b-a400m")), "moe slice"),
-    (dict(data=R.DataSpec(plane="plane")), "data-plane slice"),
+    # the single-host plane and checkpoints are ported: what stays refused
+    # is the tiered corpus on the plane, checkpoints of elastic runs and
+    # serving an LM while it trains on the plane
+    (dict(data=R.DataSpec(plane="plane", tiering=R.TieringSpec(
+        enabled=True, hbm_bytes=1))), "tiered-corpus slice"),
     (dict(topology=R.TopologySpec(hosts=2)), "distributed slice"),
     (dict(data=R.DataSpec(tiering=R.TieringSpec(enabled=True, hbm_bytes=1))),
      "tiered-corpus slice"),
     (dict(elastic=R.ElasticSpec(enabled=True)), "elastic slice"),
-    (dict(checkpoint=R.CheckpointSpec(directory="ck")), "elastic slice"),
+    (dict(checkpoint=R.CheckpointSpec(directory="ck"),
+          elastic=R.ElasticSpec(enabled=True)), "elastic slice"),
     (dict(obs=R.ObsSpec(enabled=True)), "observability slice"),
     (dict(serve=R.ServeSpec(enabled=True)), "serve slice"),
     (dict(LM, data=R.DataSpec(kind="lm", plane="plane"),
-          model=R.ModelSpec(arch="falcon-mamba-7b")), "data-plane slice"),
+          model=R.ModelSpec(arch="falcon-mamba-7b"),
+          serve=R.ServeSpec(enabled=True)), "serve slice"),
     (dict(policy=R.PolicySpec("traffic_driven")), "serve slice"),
 ], ids=["lm", "plane", "hosts", "tiering", "elastic", "checkpoint", "obs",
         "serve", "adamw_lm", "traffic_driven"])

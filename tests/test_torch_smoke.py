@@ -13,6 +13,8 @@ import pytest
 import torch
 
 import repro_torch.api as P
+from repro_torch.core.engine import BETSchedule, BetEngine
+from repro_torch.data.device_window import window_rows
 from repro_torch.kernels import ops as tops
 from repro_torch.models import transformer as TT
 from repro_torch.optim.api import tree_leaves, tree_map
@@ -36,7 +38,7 @@ def test_breakdown_finds_one_kernel_node_per_layer(arch, node, layer_type):
                               n0=8)
     sess = P.build(spec, device="cpu")
     cfg = sess.model_config
-    rows = sess.dataset.window(2)
+    rows = chip_smoke.first_rows({"window_rows": window_rows}, sess, 2)
     batch = {"tokens": rows[:, :-1], "labels": rows[:, 1:]}
     params = tree_map(lambda x: x.detach().requires_grad_(True), sess.w0)
     with torch.enable_grad():
@@ -92,7 +94,7 @@ def test_breakdown_times_the_recomputation_apart_from_the_vjps(arch, parts):
                               n0=8)
     sess = P.build(spec, device="cpu")
     cfg = sess.model_config
-    rows = sess.dataset.window(2)
+    rows = chip_smoke.first_rows({"window_rows": window_rows}, sess, 2)
     batch = {"tokens": rows[:, :-1], "labels": rows[:, 1:]}
     params = tree_map(lambda x: x.detach().requires_grad_(True), sess.w0)
     seg, sync = {}, lambda: None
@@ -138,3 +140,129 @@ def test_method_runs_launch_what_their_traces_imply(monkeypatch):
         del calls[:]
         tr = run("cpu")
         assert len(calls) == methods.kernel_calls(tr) > 0, name
+
+
+class _OnCPU:
+    """``repro_torch.api`` with ``build`` and ``resume_session`` sent to
+    the CPU, as chip_smoke.py's phases call them for the card."""
+
+    def __getattr__(self, name):
+        return getattr(P, name)
+
+    @staticmethod
+    def build(spec, device="cuda"):
+        return P.build(spec, device="cpu")
+
+    @staticmethod
+    def resume_session(directory, device="cuda"):
+        return P.resume_session(directory, device="cpu")
+
+
+def _cpu_rt(monkeypatch, tmp_path):
+    """chip_smoke.py's runtime table on the CPU, with the wrapper counting
+    its calls where the card's launches are counted."""
+    from repro_torch.launch import methods
+    counts = {"linear_value_grad": 0}
+    real = tops.linear_value_grad
+
+    def counted(*a, **kw):
+        counts["linear_value_grad"] += 1
+        return real(*a, **kw)
+
+    monkeypatch.setattr(tops, "linear_value_grad", counted)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(chip_smoke, "FAILED", [])
+    ops = type("Ops", (), {"CALLS": counts, "reset_calls": staticmethod(
+        lambda: counts.update(linear_value_grad=0))})
+    return {"api": _OnCPU(), "ops": ops, "methods": methods,
+            "window_rows": window_rows, "tree_leaves": tree_leaves,
+            "build_dir": tmp_path}
+
+
+def test_plane_phases_find_their_specs(tmp_path):
+    """The specs of chip_smoke.py's plane phases: quickstart@6 on the plane
+    is 768 shards of 64 rows (76.8 KB of X each); the memmap run is
+    BENCH_data.json's fig3 setting; the LM runs are on the plane, and the
+    resume run is falcon-mamba-7b at full width, one layer, one checkpoint
+    kept, two racing stages and the final phase."""
+    import json
+    from repro_torch.api import session
+    data, base = chip_smoke.quickstart_specs(P)
+    sess = P.build(P.RunSpec(**dict(base, data=data.replace(plane="plane"))),
+                   device="cpu")
+    store = sess.dataset.stores[0]
+    assert (store.num_examples, store.num_shards, store.shard_size) == \
+        (49152, 768, 64)
+    assert store.shard_size * store.example_nbytes == 76800
+    sess.close()
+    bench = json.loads((Path(chip_smoke.__file__).parent
+                        / "BENCH_data.json").read_text())
+    mm = P.DataSpec(lam=1e-3, store="memmap", workdir=str(tmp_path),
+                    plane="plane", **chip_smoke.MEMMAP_DATA)
+    sess = P.build(P.RunSpec(data=mm), device="cpu")
+    ds = sess.dataset
+    assert f"fig3/{mm.dataset}" == bench["workload"]
+    assert (ds.n, ds.d, mm.shard_size, mm.delay_ms) == \
+        (bench["n"], bench["d"], bench["shard_size"], bench["delay_ms"])
+    assert chip_smoke.MEMMAP_N0 == max(128, min(ds.d, ds.n // 8))
+    assert chip_smoke.MEMMAP_HESSIAN == min(1.0, max(0.1, 2.0 * ds.d / ds.n))
+    sess.close()
+    for arch, kw in (("falcon-mamba-7b", {}),
+                     ("recurrentgemma-9b", {"layers": chip_smoke.HY_LAYERS})):
+        spec = chip_smoke.lm_spec(P, arch=arch, reduced=False,
+                                  policy="fixed_steps", corpus=64,
+                                  seq_len=32, n0=32, **kw)
+        assert spec.data.plane == "plane"
+        session._validate(spec)
+    spec = chip_smoke.lm_spec(
+        P, reduced=False, policy="two_track",
+        corpus=chip_smoke.RESUME_CORPUS, seq_len=chip_smoke.LM_SEQ,
+        n0=chip_smoke.RESUME_N0, max_stage_iters=chip_smoke.RESUME_ITERS,
+        layers=chip_smoke.RESUME_LAYERS)
+    session._validate(spec)
+    cfg = session.lm_config(spec.model)
+    assert (cfg.num_layers, cfg.d_model, cfg.d_inner) == (1, 4096, 8192)
+    engine = BetEngine(schedule=BETSchedule(n0=spec.schedule.n0))
+    stages = engine.stage_infos(P.build_policy(spec.policy),
+                                chip_smoke.RESUME_CORPUS)
+    assert [i.n_t for i in stages] == [128, 256, 256]
+
+
+def test_convex_plane_phase_holds_the_plane_to_the_host_path(monkeypatch,
+                                                            tmp_path):
+    """chip_smoke.py's convex plane phase at 1/24 of its size, on the CPU:
+    every plane run equals its host-path run bit for bit, meters every
+    example once and calls the kernel wrapper as its trace implies."""
+    rt = _cpu_rt(monkeypatch, tmp_path)
+    assert chip_smoke.convex_plane_phase(torch, rt, scale=0.25) > 0
+    assert chip_smoke.FAILED == []
+    assert list(tmp_path.iterdir()) == []       # the memmap store is gone
+
+
+@pytest.mark.parametrize("run", ["convex", "mamba"])
+def test_kill_and_resume_stitches_bitwise(monkeypatch, tmp_path, run):
+    """chip_smoke.py's kill-and-resume on the CPU: a convex two-track run
+    and the reduced falcon-mamba-7b (float32) two-track run, each killed
+    after stage 1 and resumed from its checkpoint, equal their whole runs;
+    the checkpoint directory is deleted."""
+    rt = _cpu_rt(monkeypatch, tmp_path)
+    if run == "convex":
+        data, base = chip_smoke.quickstart_specs(P, 0.25)
+        spec = P.RunSpec(name="convex", policy=P.PolicySpec(
+            "two_track", {"final_steps": 4}),
+            **dict(base, data=data.replace(plane="plane", shard_size=32)))
+    else:
+        spec = chip_smoke.lm_spec(
+            P, reduced=True, policy="two_track", corpus=64, seq_len=16,
+            n0=16, max_stage_iters=4, batch=4, eval_rows=8)
+        spec = spec.replace(
+            data=spec.data.replace(shard_size=16),
+            checkpoint=P.CheckpointSpec(keep=1))
+    row = chip_smoke.kill_and_resume(torch, rt, spec, 1,
+                                     chip_smoke.CONVEX_COLUMNS)
+    assert row["differs_from_whole_run"] == [] and chip_smoke.FAILED == []
+    assert row["rewarm"]["examples_loaded"] == row["n_t"]
+    assert row["checkpoint_bytes"] > 0 and row["checkpoint_read_s"]
+    assert 0 < len(row["checkpoints_left_on_disk"]) <= \
+        2 * spec.checkpoint.keep                # .npz and .json, rolled
+    assert list(tmp_path.iterdir()) == []
