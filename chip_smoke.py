@@ -83,6 +83,32 @@ has phases of its own, each run's launches counted from 0:
     seconds.  The checkpoints go to a temporary directory under build/,
     deleted at the end.
 
+The multi-host runtime (``TopologySpec(hosts=4)``: four simulated hosts
+whose lanes share the card, each host's plane reading only its owned
+shards) and elastic recovery, each check failing the run at its end:
+ 3e. convex over 4 hosts: quickstart@6 two-track, B1 launched once per
+    non-empty lane per step as the trace and the lane counts imply, the
+    reference benchmark's claims (each host loads its owned slice, each
+    example leaves storage once, no resident byte re-uploaded, one
+    collective flush a stage), the same run on the CPU within rtol 1e-4;
+    at hessian_fraction 1 against one host (f̂ within rel 1e-3, the same
+    host transfers); BENCH_dist.json's setting (fig3 webspam_like 2,048 ×
+    1,024, memmap shards of 128 rows, 1 ms a read).
+ 3f. elastic, on the same 4-host quickstart@6 run: a host killed after
+    stage 1, bit for bit the unfaulted run, re-reading exactly its lane's
+    owned slice of the window; a straggler whose reads take 0.2 s against
+    a 0.02 s flush deadline (shards migrated, each example loaded once,
+    the windows a partition, f̂ within rel 1e-3 of the unfaulted run); a
+    kill-and-resume from a "distributed" stage checkpoint, bit for bit.
+ 3g. the LMs over 4 hosts, two stages of two steps: falcon-mamba-7b at
+    full width and one layer (8 × 256, two rows a lane), unfaulted and
+    with host 1 killed after stage 0, bit for bit; recurrentgemma-9b, one
+    super-block (4 × 4096, a row a lane); B3, B4 and B2 launched as the
+    traces imply, each peak (above the memory held before its build)
+    within 100 MB of the same run on one host.
+ 3h. a one-process ProcessTopology over NCCL: all-reduce, all-gather, and
+    a DistributedDataset under it bit for bit the simulated one-host one.
+
 Then the ``{"kernels": [...]}`` line, and last ``{"ok": true, ...}``.
 """
 from __future__ import annotations
@@ -1717,6 +1743,487 @@ def resume_phase(torch, rt) -> dict:
     return {"convex": row, "lm": lm_row}
 
 
+# the multi-host runtime (dist/) and elastic recovery (elastic/): 4
+# simulated hosts, all lanes on the one card
+HOSTS = 4
+# BENCH_dist.json's setting (the reference's bench_dist.py): webspam_like at
+# scale 0.125 (2,048 x 1,024), memmap shards of 128 rows read with a 1 ms
+# delay, fixed_steps (5, 25), n0 256, Newton-CG on the whole window
+DIST_DATA = dict(dataset="webspam_like", scale=0.125, shard_size=128,
+                 delay_ms=1.0)
+DIST_N0, DIST_STEPS = 256, (5, 25)
+# the trajectory bound against one host: the lanes' partial sums
+# re-associate the float32 reduction (the reference's bench_dist.py)
+DIST_RTOL = 1e-3
+# the straggler: a read of its shards takes SLOW_S, ten times the deadline
+# of the stage flush, so its backlog outlasts the deadline on any host
+SLOW_S, DEADLINE_S = 0.2, 0.02
+# the LMs over 4 hosts: two stages of two steps at the main paths' widths;
+# falcon-mamba-7b at one layer (2 rows a lane a step), recurrentgemma-9b at
+# one super-block with one row a lane (a batch of 2 does not split over 4)
+DIST_LM_LAYERS, DIST_HY_BATCH = 1, 4
+PEAK_SLACK_BYTES = 100 * 2**20
+
+
+def lanes_at(sess, n: int) -> int:
+    """How many lanes of a distributed session's window of ``n`` hold
+    rows — B1's launches for one ``value_and_grad`` there."""
+    own = sess.dataset.ownership
+    return sum(own.examples_in_prefix(h, n) > 0
+               for h in range(own.num_hosts))
+
+
+def dist_kernel_calls(sess, tr) -> int:
+    """The B1 launches a distributed convex run's trace implies: per step,
+    one per non-empty lane of its window, and a race step's fast track one
+    per non-empty lane of the previous window; the steps run past a
+    trigger and discarded count likewise (the stage's overshoot)."""
+    plan = {i.stage: i for i in sess.stage_plan()}
+    total, prev = 0, 0
+    for end in sess.stage_ends:
+        info = plan[end["stage"]]
+        pts = [p for p in tr.points if p.stage == info.stage]
+        race = sum("f_fast_on_t" in p.extra for p in pts)
+        over = end["overshoot"] - prev
+        prev = end["overshoot"]
+        total += (len(pts) + over) * lanes_at(sess, info.n_t) \
+            + (race + over) * lanes_at(sess, info.n_prev)
+    return total
+
+
+def stage_deltas(tr, row_bytes: int) -> list:
+    """The collective stage records, cumulative per host, differenced into
+    each stage's new examples, loads and uploads, and the bytes uploaded
+    beyond the new examples' (re-upload; the reference's bench_dist.py)."""
+    out, prev = [], {}
+    for rec in tr.meta["host_stage_records"]:
+        hosts = []
+        for r in rec["hosts"]:
+            base = prev.get(r["host"], {"resident": 0, "bytes_uploaded": 0,
+                                        "examples_loaded": 0})
+            new = r["resident"] - base["resident"]
+            up = r["bytes_uploaded"] - base["bytes_uploaded"]
+            hosts.append({"host": r["host"], "window": r["window"],
+                          "new_examples": new,
+                          "examples_loaded": r["examples_loaded"]
+                          - base["examples_loaded"],
+                          "uploaded_bytes": up,
+                          "reupload_bytes": up - new * row_bytes})
+            prev[r["host"]] = r
+        out.append({"stage": rec["stage"], "n_t": rec["n_t"], "hosts": hosts})
+    return out
+
+
+def rel_dev(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    if a.shape != b.shape:
+        return float("inf")
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-12)))
+
+
+def traj_dev(tr, ref) -> float:
+    return max(rel_dev(tr.column(c), ref.column(c))
+               for c in ("f_window", "f_full"))
+
+
+def dist_claims(name: str, sess, tr, single=None) -> dict:
+    """BENCH_dist.json's claims for a distributed run (against ``single``,
+    the same spec on one host, when given); each failure fails the run at
+    its end.  Returns the line's numbers."""
+    ds = sess.dataset
+    row_bytes = sum(st.example_nbytes for st in ds.stores)
+    loaded = [m.examples_loaded for m in ds.host_meters]
+    owned = [ds.ownership.num_owned_examples(h) for h in range(len(loaded))]
+    meter = tr.meta["dist"]["meter"]
+    stages = stage_deltas(tr, row_bytes)
+    reupload = sum(abs(h["reupload_bytes"]) for s in stages
+                   for h in s["hosts"])
+    claims = {
+        "per_host_loads_are_owned_slice_only": loaded == owned,
+        "per_host_share_within_one_shard_of_global_over_n": all(
+            abs(k - ds.n / len(loaded)) <= ds.ownership.shard_size
+            for k in loaded),
+        "each_example_loaded_once_globally": meter["examples_loaded"] == ds.n,
+        "zero_resident_reupload_per_stage_per_host": reupload == 0,
+        "one_collective_flush_per_stage": all(
+            len(r["hosts"]) == len(loaded)
+            for r in tr.meta["host_stage_records"]) and
+        len(tr.meta["host_stage_records"]) == tr.meta["stages"],
+        "accesses_are_the_clocks":
+            meter["examples_accessed"] == sess.clock.data_accesses,
+    }
+    row = {"per_host_examples_loaded": loaded,
+           "per_host_owned_examples": owned, "global_meter": {
+               k: v for k, v in meter.items() if isinstance(v, int)},
+           "reupload_bytes": reupload,
+           "host_transfers": tr.meta["host_transfers"],
+           "stages": tr.meta["stages"]}
+    if single is not None:
+        row["single_host_transfers"] = single.meta["host_transfers"]
+        row["trajectory_max_rel_dev"] = traj_dev(tr, single)
+        claims["host_transfers_equal_single_host"] = \
+            tr.meta["host_transfers"] == single.meta["host_transfers"]
+        claims["trajectory_matches_single_host_within_fp_tolerance"] = \
+            all(tr.column(c) == single.column(c)
+                for c in ("step", "stage", "window", "time", "accesses")) \
+            and row["trajectory_max_rel_dev"] <= DIST_RTOL
+    for k, ok in claims.items():
+        if not ok:
+            fail_later(f"{name}: claim {k} does not hold ({row})")
+    return dict(row, claims=claims)
+
+
+def timed_build_run(torch, rt, spec):
+    """Build and run ``spec`` on the card, with the B1 launches of the run
+    counted from 0; returns (session, trace, launches, wall seconds)."""
+    sess = rt["api"].build(spec, device="cuda")
+    torch.cuda.synchronize()
+    rt["ops"].reset_calls()
+    t0 = time.perf_counter()
+    tr = sess.run()
+    torch.cuda.synchronize()
+    return sess, tr, rt["ops"].CALLS["linear_value_grad"], \
+        time.perf_counter() - t0
+
+
+def lane_times(torch, rt, sess, data) -> dict:
+    """The card's time of one ``value_and_grad`` over the 4 lanes of the
+    whole window (B1 once a lane, the partials summed) against one over
+    the same rows as one window, and of B1 alone on one lane and on the
+    whole window: the cost of launching per lane (CUDA events, after
+    warm-up)."""
+    api, ops = rt["api"], rt["ops"]
+    ds, objective, _ = api.convex_problem(data, device=sess.device)
+    hw = sess.dataset.window(sess.dataset.n)
+    X, y = hw.fields
+    m = hw.host_counts[0]
+    w = 0.01 * torch.ones(ds.d, device=sess.device)
+    spin = spin_cycles_per_s(torch)
+    fns = {
+        "value_and_grad_lanes": lambda: sess.objective.value_and_grad(w, hw),
+        "value_and_grad_window": lambda: objective.value_and_grad(
+            w, (ds.X, ds.y)),
+        "b1_one_lane": lambda: ops.linear_value_grad(X[0, :m], y[0, :m], w),
+        "b1_window": lambda: ops.linear_value_grad(ds.X, ds.y, w)}
+    row = {"path": "dist_lane_times", "lanes": hw.num_hosts,
+           "rows_per_lane": m, "n": ds.n, "d": ds.d}
+    for name, fn in fns.items():
+        t = time_ms(torch, fn, spin)
+        row[f"{name}_ms"], row[f"{name}_call_ms"] = t["ms"], t["call_ms"]
+    emit(row)
+    return row
+
+
+def dist_convex_phase(torch, rt, scale: float = 6.0) -> int:
+    """quickstart@6 over 4 simulated hosts on the plane (64-row shards):
+    two-track as quickstart gives it, its B1 launches against the count
+    its trace and lane counts imply, BENCH_dist.json's claims and the CPU
+    run; then at hessian_fraction 1 (the subsample is the identity on
+    both layouts, so the lanes' re-associated sums are the only
+    difference, as in the reference's benchmark) against one host within
+    rel 1e-3; then BENCH_dist.json's own setting.  ``scale`` sets another
+    size of quickstart.  Returns the first run's launches."""
+    api = rt["api"]
+    data, base = quickstart_specs(api, scale)
+    topo = api.TopologySpec(hosts=HOSTS)
+    spec = api.RunSpec(name="dist_quickstart", policy=api.PolicySpec(
+        "two_track", {"final_steps": 20}), topology=topo,
+        **dict(base, data=data.replace(plane="plane")))
+    sess, tr, launches, wall = timed_build_run(torch, rt, spec)
+    implied = dist_kernel_calls(sess, tr)
+    row = dist_claims("dist quickstart@6", sess, tr)
+    cpu = api.build(spec, device="cpu").run()
+    differ = [c for c in ("step", "stage", "window", "time", "accesses")
+              if cpu.column(c) != tr.column(c)]
+    card_vs_cpu = traj_dev(tr, cpu)
+    emit({"path": "dist_convex", "run": "quickstart@6", "hosts": HOSTS,
+          "n": sess.dataset.n, "shard_size": sess.dataset.ownership.shard_size,
+          "steps": len(tr.points), "wall_s": wall,
+          "linear_value_grad_launches": launches, "implied_launches": implied,
+          "lanes_per_stage": [lanes_at(sess, e["n_t"])
+                              for e in sess.stage_ends],
+          "f_full": tr.final().f_full, "cpu_columns_differ": differ,
+          "card_vs_cpu_max_rel": card_vs_cpu, **row})
+    if launches != implied:
+        fail_later(f"dist quickstart@6: B1 launched {launches} times, the "
+                   f"trace and lane counts imply {implied}")
+    lane_times(torch, rt, sess, data)
+    if differ or not card_vs_cpu <= RTOL_F:
+        fail_later(f"dist quickstart@6: card and CPU differ (columns "
+                   f"{differ}, f rel {card_vs_cpu} against {RTOL_F})")
+    parity = spec.replace(name="dist_parity", optimizer=api.OptimizerSpec(
+        "newton_cg", {"hessian_fraction": 1.0}))
+    one = api.build(parity.replace(topology=api.TopologySpec()),
+                    device="cuda").run()
+    psess, ptr, plaunch, pwall = timed_build_run(torch, rt, parity)
+    emit({"path": "dist_convex", "run": "quickstart@6_parity",
+          "hessian_fraction": 1.0, "steps": len(ptr.points), "wall_s": pwall,
+          "linear_value_grad_launches": plaunch,
+          "implied_launches": dist_kernel_calls(psess, ptr),
+          **dist_claims("dist quickstart@6 parity", psess, ptr, one)})
+    with tempfile.TemporaryDirectory(dir=rt["build_dir"]) as workdir:
+        inner, final = DIST_STEPS
+        bench = api.RunSpec(
+            name="bench_dist", data=api.DataSpec(
+                lam=1e-3, plane="plane", store="memmap", workdir=workdir,
+                **DIST_DATA),
+            policy=api.PolicySpec("fixed_steps", {"inner_steps": inner,
+                                                  "final_steps": final}),
+            optimizer=api.OptimizerSpec("newton_cg",
+                                        {"hessian_fraction": 1.0}),
+            schedule=api.ScheduleSpec(n0=DIST_N0), topology=topo)
+        one = api.build(bench.replace(
+            topology=api.TopologySpec(),
+            data=bench.data.replace(plane="host")), device="cuda").run()
+        bsess, btr, blaunch, bwall = timed_build_run(torch, rt, bench)
+        m = btr.meta["dist"]["meter"]
+        emit({"path": "dist_convex", "run": "bench_dist", "hosts": HOSTS,
+              "n": bsess.dataset.n, "d": bsess.dataset.d,
+              "steps": len(btr.points), "wall_s": bwall,
+              "overlap_fraction": m["overlap_fraction"],
+              "blocked_time_s": m["blocked_time_s"],
+              "linear_value_grad_launches": blaunch,
+              "implied_launches": dist_kernel_calls(bsess, btr),
+              **dist_claims("bench_dist", bsess, btr, one)})
+    return launches
+
+
+def elastic_convex_phase(torch, rt, scale: float = 6.0) -> dict:
+    """BENCH_elastic.json's claims on the 4-host quickstart@6 run: a host
+    killed after stage 1 (the trajectory bit for bit the unfaulted run's,
+    the re-read the lost lane's owned slice of the window, no survivor
+    re-uploading a byte); a straggler (its reads SLOW_S each from stage 1
+    on, a DEADLINE_S flush; at hessian_fraction 1, against the unfaulted
+    run within rel 1e-3: shards migrated, each example loaded once, the
+    windows a partition at every stage); a kill-and-resume from a
+    "distributed" stage checkpoint, bit for bit.  ``scale`` sets another
+    size of quickstart."""
+    api = rt["api"]
+    data, base = quickstart_specs(api, scale)
+    spec = api.RunSpec(
+        name="elastic_quickstart", policy=api.PolicySpec(
+            "two_track", {"final_steps": 20}),
+        topology=api.TopologySpec(hosts=HOSTS),
+        elastic=api.ElasticSpec(enabled=True),
+        **dict(base, data=data.replace(plane="plane")))
+    _, whole, wl, wwall = timed_build_run(torch, rt, spec)
+    ksess, killed, kl, kwall = timed_build_run(
+        torch, rt, spec.replace(elastic=api.ElasticSpec(
+            faults=("kill@1:2",))))
+    differ = bitwise_diff(run_record(killed), run_record(whole))
+    if not torch.equal(killed.params, whole.params):
+        differ.append("params")
+    if kl != wl:
+        differ.append("launches")
+    (kill,) = [e for g in killed.meta["elastic_events"] for e in g["events"]]
+    lane = kill["lanes"][0]
+    row_bytes = sum(st.example_nbytes for st in ksess.dataset.stores)
+    survivors = sum(h["reupload_bytes"]
+                    for s in stage_deltas(killed, row_bytes)
+                    for h in s["hosts"] if h["host"] != lane["lane"])
+    host_loss = {"lane": lane["lane"], "adopted_by": lane["adopted_by"],
+                 "window_at_loss": lane["window"],
+                 "reread_examples": lane["reread_examples"],
+                 "reread_bytes": lane["reread_bytes"],
+                 "owned_examples": lane["owned_examples"],
+                 "survivor_reupload_bytes": survivors,
+                 "differs_from_unfaulted": differ, "wall_s": kwall,
+                 "unfaulted_wall_s": wwall}
+    emit({"path": "elastic_convex", "run": "host_loss", **host_loss})
+    if differ:
+        fail_later(f"elastic host loss: differs from the unfaulted run in "
+                   f"{differ}")
+    if lane["reread_examples"] != lane["window"] or \
+            lane["reread_bytes"] != lane["window"] * row_bytes or survivors:
+        fail_later(f"elastic host loss: re-read {lane['reread_examples']} "
+                   f"examples for a lane window of {lane['window']}, "
+                   f"survivors re-uploaded {survivors} bytes")
+    slow = spec.replace(optimizer=api.OptimizerSpec(
+        "newton_cg", {"hessian_fraction": 1.0}))
+    calm = api.build(slow.replace(elastic=api.ElasticSpec(
+        enabled=True, capacity_slack=2.0)), device="cuda").run()
+    ssess, strag, _, swall = timed_build_run(
+        torch, rt, slow.replace(elastic=api.ElasticSpec(
+            faults=(f"slow@1:1={SLOW_S}",), straggler_deadline_s=DEADLINE_S,
+            capacity_slack=2.0)))
+    moves = [e for g in strag.meta.get("elastic_events", [])
+             for e in g["events"] if e["kind"] == "rebalance"]
+    loaded = [m.examples_loaded for m in ssess.dataset.host_meters]
+    straggler = {
+        "slow_s": SLOW_S, "deadline_s": DEADLINE_S,
+        "rebalances": len(moves),
+        "shards_migrated": sum(len(m["shards"]) for m in moves),
+        "per_lane_examples_loaded": loaded,
+        "windows_partition_every_stage": all(
+            sum(r["window"] for r in rec["hosts"]) == rec["n_t"]
+            for rec in strag.meta["host_stage_records"]),
+        "trajectory_max_rel_dev": traj_dev(strag, calm), "wall_s": swall}
+    emit({"path": "elastic_convex", "run": "straggler", **straggler})
+    if not (straggler["shards_migrated"] > 0
+            and sum(loaded) == ssess.dataset.n
+            and straggler["windows_partition_every_stage"]
+            and straggler["trajectory_max_rel_dev"] <= DIST_RTOL):
+        fail_later(f"elastic straggler: a claim does not hold ({straggler})")
+    resume = kill_and_resume(torch, rt, spec, 1, CONVEX_COLUMNS)
+    emit({"path": "resume", "run": "convex_4_hosts", **resume})
+    return {"host_loss": host_loss, "straggler": straggler}
+
+
+def dist_lm_phase(torch, rt, arch: str) -> dict:
+    """An LM main path's width over 4 simulated hosts for two stages of two
+    steps (falcon-mamba-7b at one layer, 8 x 256; recurrentgemma-9b at one
+    super-block, 4 x 4096): the kernels' launches against the trace's
+    count, the peak memory against the same run on one host (within
+    PEAK_SLACK_BYTES); for falcon-mamba-7b also a run with host 1 killed
+    after stage 0, bit for bit the unfaulted run."""
+    api, ops = rt["api"], rt["ops"]
+    if arch == "falcon-mamba-7b":
+        kw = dict(corpus=LM_CORPUS, seq_len=LM_SEQ, layers=DIST_LM_LAYERS,
+                  batch=LM_BATCH)
+    else:
+        kw = dict(corpus=HY_CORPUS, seq_len=HY_SEQ, layers=HY_LAYERS,
+                  batch=DIST_HY_BATCH, eval_rows=HY_EVAL_ROWS)
+    spec = lm_spec(api, arch=arch, reduced=False, policy="fixed_steps",
+                   n0=kw["corpus"] // 2, fixed=SHORT_STEPS, **kw)
+    runs = {"one_host": spec,
+            "hosts": spec.replace(topology=api.TopologySpec(hosts=HOSTS))}
+    if arch == "falcon-mamba-7b":
+        runs["killed"] = runs["hosts"].replace(
+            elastic=api.ElasticSpec(faults=("kill@0:1",)))
+    out = {}
+    for name, s in runs.items():
+        # the earlier phases' garbage freed first: each run's peak is its
+        # own above the same base
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        sess = api.build(s, device="cuda")
+        cfg = sess.model_config
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_calls()
+        t0 = time.perf_counter()
+        tr = sess.run()
+        torch.cuda.synchronize()
+        out[name] = {"trace": tr, "launches": dict(ops.CALLS),
+                     "wall_s": time.perf_counter() - t0,
+                     "peak": torch.cuda.max_memory_allocated() - base,
+                     "base": base,
+                     "checksum": checksum(torch, rt, tr.params),
+                     "events": tr.meta.get("elastic_events")}
+        tr.params = None
+        del sess
+        gc.collect()
+        torch.cuda.empty_cache()
+    types = cfg.layer_types()
+    passes = 3 * len(out["hosts"]["trace"].points)
+    implied = {"ssm_scan": types.count("ssm") * passes} \
+        if arch == "falcon-mamba-7b" else \
+        {"rglru_scan": types.count("rec") * passes,
+         "flash_attention": types.count("attn") * passes}
+    h = out["hosts"]
+    row = {"path": "dist_lm", "arch": arch, "hosts": HOSTS,
+           "layers": cfg.num_layers, "batch": kw["batch"],
+           "seq_len": kw["seq_len"], "steps": len(h["trace"].points),
+           "launches": h["launches"], "implied": implied,
+           "f_window": h["trace"].column("f_window"),
+           "f_full": h["trace"].column("f_full"),
+           "one_host_f_full": out["one_host"]["trace"].column("f_full"),
+           "wall_s": {k: v["wall_s"] for k, v in out.items()},
+           "peak_memory_bytes": {k: v["peak"] for k, v in out.items()},
+           "base_memory_bytes": {k: v["base"] for k, v in out.items()},
+           "data_plane_hosts": {
+               k: v["examples_loaded"] for k, v in
+               h["trace"].meta["data_plane_hosts"].items()}}
+    if "killed" in out:
+        k = out["killed"]
+        differ = bitwise_diff(run_record(k["trace"]), run_record(h["trace"]))
+        if k["checksum"] != h["checksum"]:
+            differ.append("params")
+        if k["launches"] != h["launches"]:
+            differ.append("launches")
+        row["kill"] = {"events": k["events"],
+                       "differs_from_unfaulted": differ}
+        if differ:
+            fail_later(f"{arch} over {HOSTS} hosts: the killed run differs "
+                       f"from the unfaulted one in {differ}")
+    emit(row)
+    vals = h["trace"].column("f_window") + h["trace"].column("f_full")
+    if not all(math.isfinite(v) for v in vals):
+        fail_later(f"{arch} over {HOSTS} hosts: non-finite values")
+    for name, n in implied.items():
+        if h["launches"].get(name, 0) != n:
+            fail_later(f"{arch} over {HOSTS} hosts: {name} launched "
+                       f"{h['launches'].get(name, 0)} times, the trace "
+                       f"implies {n}")
+    if abs(h["peak"] - out["one_host"]["peak"]) > PEAK_SLACK_BYTES:
+        fail_later(f"{arch} over {HOSTS} hosts: peak {h['peak']} bytes "
+                   f"against {out['one_host']['peak']} on one host")
+    return row
+
+
+def process_phase(torch, rt, device: str = "cuda") -> dict:
+    """A one-process ProcessTopology: NCCL at world size 1 on this card
+    (tcp://localhost; gloo when ``device`` is the CPU), the all-reduce and
+    the record all-gather, and a DistributedDataset under it giving the
+    simulated 1-host views and objective bit for bit."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch import dist as tdist
+    from repro_torch.data.shards import InMemoryShardStore
+    api = rt["api"]
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        # on the card: cuda:{local rank}, the topology's own choice
+        topo = tdist.ProcessTopology(
+            device=None if device == "cuda" else device)
+        comm = tdist.ProcessCollectives()
+        x = torch.arange(4, dtype=torch.float32, device=device)
+        summed = comm.psum([x, x], 1)
+        gathered = comm.all_gather_records([{"host": 0}])
+        data, _ = quickstart_specs(api, 1.0)
+        ds, _, _ = api.convex_problem(data, device="cpu")
+        X, y = ds.X.numpy(), ds.y.numpy()
+        views_equal, n_ts = [], (128, 1000, ds.n)
+        with tdist.DistributedDataset(
+                [InMemoryShardStore(X, 64), InMemoryShardStore(y, 64)],
+                topology=topo) as pd, tdist.DistributedDataset(
+                [InMemoryShardStore(X, 64), InMemoryShardStore(y, 64)],
+                topology=tdist.SimulatedTopology(1, devices=(device,))) \
+                as sd:
+            for n_t in n_ts:
+                a, b = pd.window(n_t), sd.window(n_t)
+                views_equal.append(a.host_counts == b.host_counts and all(
+                    torch.equal(fa, fb) for fa, fb in zip(a.fields,
+                                                          b.fields)))
+            w = torch.full((ds.d,), 0.01, device=device)
+            fa, ga = tdist.DistributedObjective(lam=1e-3, comm=comm) \
+                .value_and_grad(w, pd.window(ds.n))
+            fb, gb = tdist.DistributedObjective(lam=1e-3).value_and_grad(
+                w, sd.window(ds.n))
+            objective_equal = torch.equal(fa, fb) and torch.equal(ga, gb)
+        torch.cuda.synchronize()
+        row = {"path": "process_topology", "backend": dist.get_backend(),
+               "world_size": dist.get_world_size(),
+               "topology": topo.describe(),
+               "all_reduce": summed.tolist(), "all_gather": gathered,
+               "views_bitwise_simulated": views_equal,
+               "objective_bitwise_simulated": objective_equal}
+    finally:
+        dist.destroy_process_group()
+    emit(row)
+    if row["all_reduce"] != [0.0, 2.0, 4.0, 6.0] or \
+            gathered != [{"host": 0}] or not all(views_equal) or \
+            not objective_equal:
+        fail_later(f"process topology: {row}")
+    return row
+
+
 # SASS opcodes that show which units a kernel runs on: HGMMA (wgmma),
 # UTMALDG (TMA loads), SYNCS (mbarrier waits), HMMA and LDSM (mma.sync
 # and ldmatrix), MUFU.EX2 (the SFU's exp2)
@@ -1803,6 +2310,12 @@ def main() -> None:
     lm_plane_vs_host_phase(torch, rt, "recurrentgemma-9b")
     hybrid = hybrid_main_path_phase(torch, rt)
     resume_phase(torch, rt)
+    # the multi-host runtime and elastic recovery
+    dist_launches = dist_convex_phase(torch, rt)
+    elastic_convex_phase(torch, rt)
+    dist_mamba = dist_lm_phase(torch, rt, "falcon-mamba-7b")
+    dist_hybrid = dist_lm_phase(torch, rt, "recurrentgemma-9b")
+    process_phase(torch, rt)
     # 4. card against CPU
     card_vs_cpu_phase(torch, rt)
     lm_card_vs_cpu_phase(torch, rt, "falcon-mamba-7b")
@@ -1818,6 +2331,7 @@ def main() -> None:
         "launches": launches,
         "launches_convex_plane": plane_launches,
         "launches_convex_methods": method_launches,
+        "launches_dist": dist_launches,
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -1828,6 +2342,7 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan.py:45",
         "launches": lm["launches"]["ssm_scan"],
+        "launches_dist": dist_mamba["launches"]["ssm_scan"],
         "max_abs_err": scan_row["max_abs_err"],
         "ms": scan_row["kernel_ms"], "plain_ms": scan_row["plain_ms"],
         "bound_ms": scan_row["bound_ms"], "bound_by": scan_row["bound_by"],
@@ -1842,6 +2357,7 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru_scan.py:38",
         "launches": hybrid["launches"]["rglru_scan"],
+        "launches_dist": dist_hybrid["launches"]["rglru_scan"],
         "max_abs_err": rglru_row["max_abs_err"],
         "ms": rglru_row["kernel_ms"], "plain_ms": rglru_row["plain_ms"],
         "bound_ms": rglru_row["bound_ms"],
@@ -1855,6 +2371,7 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:77",
         "launches": hybrid["launches"]["flash_attention"],
+        "launches_dist": dist_hybrid["launches"]["flash_attention"],
         "max_abs_err": attn_row["max_abs_err"],
         "ms": attn_row["kernel_ms"], "plain_ms": attn_row["plain_ms"],
         "bound_ms": attn_row["bound_ms"], "bound_by": attn_row["bound_by"],

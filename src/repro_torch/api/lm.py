@@ -19,9 +19,11 @@ class LMStepOptimizer(BatchOptimizer):
 
     ``data`` is the resident token window: the host path's (n_t,
     seq_len+1) slice or the plane's ``MaskedWindow`` (rotation through the
-    valid prefix gathers the same rows from both).  The step gathers a
-    rotating mini-batch from it on the device (its counter ``t`` and the
-    plane's valid length are device tensors), so a stage's steps queue
+    valid prefix gathers the same rows from both), or the multi-host
+    ``HostWindows``, where each host rotates through its *own* lane and the
+    global batch is the per-host sub-batches in lane order.  The step
+    gathers a rotating mini-batch from it on the device (its counter ``t``
+    and the valid lengths are device tensors), so a stage's steps queue
     without host round-trips.
     ``reset_memory`` is inherited as the identity: Adam moments survive
     batch expansions."""

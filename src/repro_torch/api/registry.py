@@ -14,6 +14,7 @@ from typing import Any
 from ..core.engine import (ComposedPolicy, ExpansionPolicy, FixedSteps,
                            GradientVariance, NeverExpand, TwoTrack)
 from ..data.shards import InMemoryShardStore, MemmapShardStore, ThrottledStore
+from ..dist.topology import ProcessTopology, SimulatedTopology
 from ..optim import REGISTRY as _OPTIM_REGISTRY
 from ..optim.api import BatchOptimizer
 from .specs import OptimizerSpec, PolicySpec, SpecError
@@ -77,6 +78,13 @@ OPTIMIZERS = Registry("optimizer",
 STORES = Registry("store", {
     "memory": InMemoryShardStore,
     "memmap": MemmapShardStore,
+})
+
+
+# --------------------------------------------------------------- topologies
+TOPOLOGIES = Registry("topology", {
+    "simulated": SimulatedTopology,
+    "process": ProcessTopology,
 })
 
 

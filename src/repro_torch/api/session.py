@@ -9,11 +9,17 @@ through the host-slice path (``DataSpec(plane="host")``) or the streaming
 data plane (``plane="plane"``: shard stores, a prefetcher and a
 device-resident window, ``data/plane.py``), and either writes stage
 checkpoints (``CheckpointSpec``) that ``resume_session`` or
-``Session.resume`` continue bit for bit.  ``build`` validates the spec
-eagerly: unknown names and invalid combinations fail with a
-:class:`SpecError` as in the reference, and every branch a later slice
-brings (multiple hosts, tiering, elastic faults, observability, serving,
-the other model families) fails with a :class:`SpecError` that names it.
+``Session.resume`` continue bit for bit.  ``TopologySpec(hosts=N)`` runs
+either over N hosts (``dist/``: one plane per host over its owned shards,
+the lanes of one stacked window, the collective stage flush), simulated
+in this process; convex runs opt into the elastic runtime
+(``elastic/``: faults, straggler rebalancing) with an ``ElasticSpec``,
+and multi-host LM runs always run it, as in the reference.  ``build``
+validates the spec eagerly: unknown names and invalid combinations fail
+with a :class:`SpecError` as in the reference, and every branch a later
+slice brings (tiering, observability, serving, one ``torch.distributed``
+process per host, the other model families) fails with a
+:class:`SpecError` that names it.
 
 ``device`` is a keyword of ``build``, ``resume_session`` and
 ``convex_problem``, not a spec field, so the ``RunSpec`` JSON schema
@@ -37,13 +43,16 @@ from ..data.plane import StreamingDataset
 from ..data.synthetic import PAPER_LIKE, Dataset, classification_arrays
 from ..data.window import synth_corpus
 from ..device import resolve_device
+from ..dist.collectives import DistributedObjective
+from ..dist.runtime import DistributedBetEngine, DistributedDataset
+from ..elastic import ElasticBetEngine, ElasticDataset, FaultPlan
 from ..elastic.checkpoint import StageCheckpointer, peek_stage_meta
 from ..models.common import ModelConfig
 from ..models.linear import LOSSES, init_params, make_objective
 from ..workloads.families import resolve_family
 from .lm import TokenWindows
-from .registry import (LM_OPTIMIZER, OPTIMIZERS, STORES, build_optimizer,
-                       build_policy, make_store)
+from .registry import (LM_OPTIMIZER, OPTIMIZERS, STORES, TOPOLOGIES,
+                       build_optimizer, build_policy, make_store)
 from .specs import DataSpec, ModelSpec, RunSpec, SpecError, TieringSpec
 
 
@@ -115,28 +124,27 @@ def _validate(spec: RunSpec) -> None:
         raise SpecError(f"TopologySpec.hosts must be >= 1, got {hosts}")
 
     # branches later slices bring
-    if hosts > 1:
-        raise _not_ported(f"a {hosts}-host topology",
-                          "the distributed slice (ROADMAP queue A8)")
     if d.tiering.enabled:
         raise _not_ported("tiering (TieringSpec.enabled)",
                           "the tiered-corpus slice (ROADMAP queue A11)")
-    if spec.elastic.active:
-        raise _not_ported("elastic fault tolerance (ElasticSpec)",
-                          "the elastic slice (ROADMAP queue A7, after the "
-                          "distributed runtime of A8)")
     if spec.obs.enabled or spec.obs.fleet or spec.obs.health:
         raise _not_ported("observability (ObsSpec)",
                           "the observability slice (ROADMAP queue A11)")
     if spec.serve.enabled:
         raise _not_ported("serve-while-you-train (ServeSpec)",
                           "the serve slice (ROADMAP queue A11)")
+    if spec.topology.kind == "process" and hosts > 1:
+        # each process would fill only its own lane of a whole stacked
+        # window, and nothing yet all-reduces the objective, the LM
+        # gradients or the stage records across processes
+        raise _not_ported(
+            "one torch.distributed process per host (TopologySpec("
+            "kind='process', hosts > 1))",
+            "the multi-process slice (ROADMAP queue A13)")
 
-    # the reference's checks that apply to a single-host run
+    # the reference's checks that apply to the ported branches
     STORES.get(d.store)
-    if spec.topology.kind not in ("simulated", "process"):
-        raise SpecError(f"unknown topology {spec.topology.kind!r}; "
-                        f"registered names: ['process', 'simulated']")
+    TOPOLOGIES.get(spec.topology.kind)
     OPTIMIZERS.get(spec.optimizer.name)
     if spec.schedule.step_cost not in ("window", "batch"):
         raise SpecError(f"ScheduleSpec.step_cost must be 'window' or "
@@ -151,9 +159,40 @@ def _validate(spec: RunSpec) -> None:
             "TieringSpec budgets are set but enabled=False — enable "
             "tiering or drop the budgets (a silently untiered run would "
             "misreport the scaling study)")
-    if not spec.elastic.capacity_slack >= 1.0:
+    if hosts > 1:
+        if d.plane == "host":
+            raise SpecError(f"{hosts} hosts require the streaming plane "
+                            f"(DataSpec.plane='plane'): the host-slice "
+                            f"reference path is single-host only")
+        if d.kind == "lm":
+            batch = int(spec.optimizer.params.get("batch_size", 8))
+            if batch % hosts:
+                raise SpecError(
+                    f"batch_size={batch} must split evenly over "
+                    f"{hosts} hosts")
+            if spec.schedule.n0 < hosts:
+                raise SpecError(
+                    f"n0={spec.schedule.n0} cannot give each of {hosts} "
+                    f"hosts an example — per-host batch composition needs "
+                    f"every lane non-empty from the first stage")
+    e = spec.elastic
+    if e.faults:
+        plan = FaultPlan.parse(list(e.faults))      # grammar errors here
+        for ev in plan.events:
+            if ev.kind in ("kill", "slow") and ev.host >= hosts:
+                raise SpecError(
+                    f"fault {ev.kind}@{ev.stage}:{ev.host} targets host "
+                    f"{ev.host} but the topology has {hosts} host(s)")
+        if hosts == 1 and any(ev.kind == "kill" for ev in plan.events):
+            raise SpecError(
+                "a kill fault injects a *host* loss and needs hosts > 1; "
+                "single-host restarts are the checkpoint resume path")
+    if e.straggler_deadline_s is not None and hosts == 1:
+        raise SpecError("a straggler deadline rebalances shards *between* "
+                        "hosts and needs hosts > 1")
+    if not e.capacity_slack >= 1.0:
         raise SpecError(f"capacity_slack must be >= 1, "
-                        f"got {spec.elastic.capacity_slack}")
+                        f"got {e.capacity_slack}")
     if spec.checkpoint.resume and not spec.checkpoint.directory:
         raise SpecError("CheckpointSpec.resume needs a checkpoint "
                         "directory (--ckpt-dir) to restore from")
@@ -176,6 +215,19 @@ def _validate(spec: RunSpec) -> None:
         raise SpecError(f"{LM_OPTIMIZER!r} is the LM train step; a convex "
                         f"run needs a batch optimizer "
                         f"({[n for n in OPTIMIZERS.names() if n != LM_OPTIMIZER]})")
+
+
+def _validate_policy(spec: RunSpec, policy) -> None:
+    if policy.wants_variance:
+        if spec.data.kind != "convex":
+            raise SpecError(
+                f"policy {policy.name!r} needs per-example gradients "
+                f"(GradientVariance probes Var_i grad l_i over (X, y) "
+                f"rows); the LM path has none")
+        if spec.topology.hosts > 1:
+            raise SpecError(
+                f"policy {policy.name!r} is not SPMD-wired yet: "
+                f"variance_stats unpacks (X, y), not HostWindows")
 
 
 def lm_config(model: ModelSpec) -> ModelConfig:
@@ -226,12 +278,55 @@ def _make_checkpointer(spec: RunSpec) -> StageCheckpointer | None:
                              spec=spec.to_dict())
 
 
+def _make_topology(spec: RunSpec, device: torch.device):
+    """The spec's host topology: N simulated hosts whose lanes all live on
+    ``device``, or this ``torch.distributed`` process's host."""
+    cls = TOPOLOGIES.get(spec.topology.kind)
+    if spec.topology.kind == "simulated":
+        return cls(spec.topology.hosts, devices=(device,))
+    topo = cls(device=device)
+    if topo.num_hosts != spec.topology.hosts:
+        raise SpecError(
+            f"TopologySpec.hosts={spec.topology.hosts} but the process "
+            f"topology has {topo.num_hosts} torch.distributed processes")
+    return topo
+
+
+def _use_elastic(spec: RunSpec) -> bool:
+    # the LM distributed path always runs the elastic runtime (identical
+    # behavior without faults); convex runs opt in through ElasticSpec
+    return spec.topology.hosts > 1 and \
+        (spec.data.kind == "lm" or spec.elastic.active)
+
+
 def _make_engine(spec: RunSpec, optimizer) -> BetEngine:
-    return BetEngine(
+    kw = dict(
         schedule=BETSchedule(n0=spec.schedule.n0, growth=spec.schedule.growth),
         step_cost=_step_cost(spec, optimizer),
         wait_on_expand=spec.schedule.wait_on_expand,
         carry_state=spec.schedule.carry_state)
+    if spec.topology.hosts == 1:
+        return BetEngine(**kw)
+    if not _use_elastic(spec):
+        return DistributedBetEngine(**kw)
+    faults = FaultPlan.parse(list(spec.elastic.faults)) \
+        if spec.elastic.faults else None
+    return ElasticBetEngine(faults=faults,
+                            deadline_s=spec.elastic.straggler_deadline_s,
+                            **kw)
+
+
+def _distributed_dataset(spec: RunSpec, stores, device: torch.device):
+    """The hosts' dataset over ``stores``: elastic when the spec asks for
+    it (and always for an LM), each lane on ``device``."""
+    kw = dict(topology=_make_topology(spec, device),
+              growth=spec.schedule.growth,
+              prefetch_workers=spec.data.prefetch_workers)
+    if _use_elastic(spec):
+        return ElasticDataset(
+            stores, capacity_slack=spec.elastic.capacity_slack,
+            worker_delays=spec.elastic.worker_delays, **kw)
+    return DistributedDataset(stores, **kw)
 
 
 def _stores(data: DataSpec, arrays: dict) -> list:
@@ -250,9 +345,14 @@ def _build_convex(spec: RunSpec, policy, device: torch.device) -> "Session":
         # reference: the whole corpus on the device from the build on,
         # beside the window, its upload not metered
         X, y = _convex_arrays(data.replace(**_SERVING_FIELDS))[:2]
-        dataset = StreamingDataset(
-            _stores(data, {"X": X, "y": y}), growth=spec.schedule.growth,
-            prefetch_workers=data.prefetch_workers, device=device)
+        stores = _stores(data, {"X": X, "y": y})
+        if spec.topology.hosts > 1:
+            objective = DistributedObjective(data.loss, data.lam)
+            dataset = _distributed_dataset(spec, stores, device)
+        else:
+            dataset = StreamingDataset(
+                stores, growth=spec.schedule.growth,
+                prefetch_workers=data.prefetch_workers, device=device)
     else:
         dataset = ds
     optimizer = build_optimizer(spec.optimizer)
@@ -266,12 +366,14 @@ def _build_convex(spec: RunSpec, policy, device: torch.device) -> "Session":
 
 
 def _build_lm(spec: RunSpec, policy, device: torch.device) -> "Session":
-    """The reference's single-host LM build: the numpy corpus from
-    ``data.seed`` (bit-identical to the reference's) served through the
-    host-slice path (``TokenWindows``) or the streaming plane (a masked
-    window), an eval probe sliced from it on the host, and the family's
-    parameters, train step and probe objective on ``device``."""
+    """The reference's LM build: the numpy corpus from ``data.seed``
+    (bit-identical to the reference's) served through the host-slice path
+    (``TokenWindows``), the streaming plane (a masked window) or, over N
+    hosts, the elastic runtime's stacked lanes; an eval probe sliced from
+    it on the host; and the family's parameters, train step and probe
+    objective on ``device``."""
     data = spec.data
+    hosts, n0 = spec.topology.hosts, spec.schedule.n0
     cfg = lm_config(spec.model)
     family = resolve_family(spec.model, cfg)
     corpus = synth_corpus(data.corpus_size, data.seq_len + 1,
@@ -279,7 +381,22 @@ def _build_lm(spec: RunSpec, policy, device: torch.device) -> "Session":
     # eval probe sliced on the host: the plane path must not ship the whole
     # corpus to the device just to build it — the DeviceWindow streams that
     eval_np = corpus[:: max(1, len(corpus) // data.eval_rows)][: data.eval_rows]
-    if data.plane == "plane":
+    if hosts > 1:
+        # clamp shard granularity so every host owns a shard inside n0:
+        # empty lanes would otherwise silently serve their zero padding
+        # through rotation_rows/probe_rows for the early stages
+        shard = min(data.shard_size, max(1, n0 // hosts))
+        dataset = _distributed_dataset(
+            spec, _stores(data.replace(shard_size=shard),
+                          {"tokens": corpus}), device)
+        full = dataset.ownership.min_full_participation_window()
+        if full > n0:
+            dataset.close()     # the failed build must not leak prefetchers
+            raise SpecError(
+                f"n0={n0} is below the smallest window in which every "
+                f"host owns data ({full}); raise n0 or shrink "
+                f"shard_size/hosts")
+    elif data.plane == "plane":
         dataset = StreamingDataset(
             _stores(data, {"tokens": corpus}), masked=True,
             growth=spec.schedule.growth,
@@ -311,6 +428,7 @@ def build(spec: RunSpec | dict, *, device="cuda") -> "Session":
     _validate(spec)
     dev = resolve_device(device)
     policy = build_policy(spec.policy)
+    _validate_policy(spec, policy)
     if spec.data.kind == "lm":
         return _build_lm(spec, policy, dev)
     return _build_convex(spec, policy, dev)
@@ -475,6 +593,10 @@ class Session:
         meter = getattr(self.dataset, "meter", None)
         if meter is not None:
             trace.meta["data_plane"] = meter.snapshot()
+        if isinstance(self.dataset, DistributedDataset):
+            trace.meta["data_plane_hosts"] = {
+                h: self.dataset.host_meters[h].snapshot()
+                for h in self.dataset.planes}
         self.trace = trace
         return trace
 
@@ -486,6 +608,9 @@ class Session:
         meter = getattr(self.dataset, "meter", None)
         if meter is not None:
             out["data_plane"] = meter.snapshot()
+        if isinstance(self.dataset, DistributedDataset):
+            out["hosts"] = {h: self.dataset.host_meters[h].snapshot()
+                            for h in self.dataset.planes}
         return out
 
     def close(self) -> None:

@@ -608,7 +608,9 @@ class BetEngine:
     def _stage_boundary(self, ctx, info: StageInfo, w, state) -> None:
         """Once-per-stage boundary: the stage's records are flushed, the
         trace is current, and (w, state) are the exact carries the next
-        stage starts from."""
+        stage starts from — where a checkpoint captures a resumable run and
+        where elastic events (host loss and join, straggler rebalancing)
+        are applied between stages (``elastic/runtime.py``)."""
         if self.stage_callback is not None:
             self.stage_callback(StageEnd(
                 info=info, params=w, opt_state=state, clock=ctx["clock"],
@@ -616,12 +618,19 @@ class BetEngine:
                 step_count=ctx["step_count"], stages=ctx["stages"],
                 transfers=ctx["transfers"], overshoot=ctx["overshoot"]))
 
+    def _collect_host_records(self, ctx, info: StageInfo) -> None:
+        """Once-per-stage flush hook, called right before the trace lands.
+        The multi-host runtime (``dist/runtime.DistributedBetEngine``)
+        all-gathers per-host stage records here through its communicator;
+        the single-host engine records nothing extra."""
+
     def _flush_stage(self, ctx, policy, info: StageInfo, rec: StageRecords,
                      *, eval_charge: int = 0):
         """Replay the §4.2 clock charges for the stage's inner steps and land
         the whole stage in the trace with one Trace.extend call.
         ``eval_charge`` > 0 bills one eval pass of that many points after
         each chunk — the variance probe (charged like DSM's norm test)."""
+        self._collect_host_records(ctx, info)
         clock, cost, trace = ctx["clock"], ctx["cost"], ctx["trace"]
         fs, ffull = rec.f_window(), rec.f_full()
         n = len(fs)
@@ -765,6 +774,7 @@ class BetEngine:
                 st_slow = state
                 st_fast = optimizer.init(w)
             s = rec.steps
+            self._collect_host_records(ctx, info)
             # replay the per-step clock charges: slow update, fast update,
             # condition evaluation (charged per the paper unless disabled),
             # plus one variance-probe eval at each race round's end

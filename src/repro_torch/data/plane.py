@@ -19,9 +19,12 @@ Views: ``masked=True`` serves a ``MaskedWindow`` (the LM path);
 ``masked=False`` serves device-side prefix views, one per field store (the
 convex ``(X, y)`` path, bit-exact against the host path's slices).
 
-The reference's ``windows=`` (caller-supplied lanes of a stacked
-multi-host window) and ``shardings=`` (a mesh placement) belong to the
-distributed slice (ROADMAP queue A8) and are refused here.
+``windows=`` hands the plane caller-made windows instead: the multi-host
+runtime gives each host's plane the ``WindowLane``s of the shared
+``StackedDeviceWindow`` (``dist/runtime.py``).  The reference's
+``shardings=`` places the windows with a JAX ``NamedSharding`` and has no
+counterpart here: a window lives on the device it is made on (the
+topology's, for the multi-host lanes).
 """
 from __future__ import annotations
 
@@ -42,11 +45,12 @@ class StreamingDataset:
                  meter: DataAccessMeter | None = None, growth: float = 2.0,
                  prefetch_workers: int = 1, device="cuda",
                  windows: Sequence | None = None, shardings=None):
-        if windows is not None or shardings is not None:
+        if shardings is not None:
             raise NotImplementedError(
-                "StreamingDataset windows=/shardings= (multi-host lanes and "
-                "mesh placements) are not yet ported to repro_torch; they "
-                "come with the distributed slice (ROADMAP queue A8)")
+                "StreamingDataset shardings= is a JAX NamedSharding and has "
+                "no counterpart in repro_torch: a window lives on the device "
+                "it is made on (device=, or the topology's device for the "
+                "multi-host lanes given as windows=)")
         stores = tuple(stores)
         if masked and len(stores) != 1:
             raise ValueError("masked mode serves a single field store")
@@ -55,11 +59,21 @@ class StreamingDataset:
         self.meter = meter if meter is not None else DataAccessMeter()
         # the windows first: a bad device or growth must not leave a
         # prefetcher's thread pool behind
-        self.windows = tuple(
-            DeviceWindow(capacity=store_capacity(s), item_shape=s.item_shape,
-                         dtype=s.dtype, growth=growth, meter=self.meter,
-                         meter_examples=i == 0, device=device)
-            for i, s in enumerate(stores))
+        if windows is not None:
+            # caller-made windows (a WindowLane of the shared stacked
+            # window per field) own their upload metering
+            windows = tuple(windows)
+            if len(windows) != len(stores):
+                raise ValueError(
+                    f"{len(windows)} windows for {len(stores)} field stores")
+            self.windows = windows
+        else:
+            self.windows = tuple(
+                DeviceWindow(capacity=store_capacity(s),
+                             item_shape=s.item_shape, dtype=s.dtype,
+                             growth=growth, meter=self.meter,
+                             meter_examples=i == 0, device=device)
+                for i, s in enumerate(stores))
         self.prefetcher = Prefetcher(stores, self.meter,
                                      max_workers=prefetch_workers)
         self._next_shard = 0

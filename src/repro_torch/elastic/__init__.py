@@ -1,7 +1,12 @@
-# Stage-boundary checkpoints of a single-host run: the window cursor, the
-# clock, the data plane's meters and the trace, so a resumed run continues
-# bit for bit.  The elastic runtime and fault plans need the distributed
-# runtime and come with it (ROADMAP queue A8).
+# The elastic fault-tolerance subsystem: stage-boundary checkpoints
+# capturing the full runtime state, lane handover and rebuild on host loss,
+# tail reassignment for stragglers and joins, and deterministic failure
+# injection — layered over dist/ + data/ + core/engine.py.  The recovery
+# contract comes from §3.3: the window is a prefix of one fixed
+# permutation, so (t, n_t) and the ownership map determine exactly what a
+# replacement worker must re-read.
 from .checkpoint import (RestoredRun, StageCheckpointer, dataset_state,
                          load_stage_checkpoint, peek_stage_meta,
                          restore_dataset)
+from .faults import FaultEvent, FaultPlan
+from .runtime import ElasticBetEngine, ElasticDataset

@@ -1,19 +1,22 @@
-"""Stage-boundary checkpoints: the *full* BET runtime state of a
-single-host run — the port of ``repro.elastic.checkpoint`` for the
-``"plain"`` and ``"streaming"`` datasets.
+"""Stage-boundary checkpoints: the *full* BET runtime state — the port of
+``repro.elastic.checkpoint`` for the ``"plain"``, ``"streaming"`` and
+``"distributed"`` datasets.
 
 A resumable BET run needs more than (params, opt_state): the window cursor
-``(stage, n_t, step)``, the simulated clock, the ``DataAccessMeter``
-counters and the trace so far.  Because the window is a prefix of one
-fixed permutation, that is *everything*: a fresh process re-reads the
-``[0, n_t)`` prefix (charged to a separate "rewarm" record so the restored
-Thm 4.1 counters stay bit-compatible with the uninterrupted run) and
-continues the schedule from ``stage + 1`` with identical numerics and
-identical accounting.
+``(stage, n_t, step)``, the simulated clock, the per-lane
+``DataAccessMeter`` counters, the trace so far, and — elastically — the
+lane→worker assignment and owned-shard lists after any deltas.  Because
+the window is a prefix of one fixed permutation, that is *everything*: a
+fresh process re-reads the ``[0, n_t)`` prefix (charged to a separate
+"rewarm" record so the restored Thm 4.1 counters stay bit-compatible with
+the uninterrupted run) and continues the schedule from ``stage + 1`` with
+identical numerics and identical accounting.
 
-The reference's ``"distributed"`` and ``"tiered"`` dataset kinds come with
-the distributed slice (ROADMAP queue A8) and the tiered corpus (A11); a
-checkpoint of either kind is refused on restore.
+A distributed checkpoint writes each lane's meter to its own file,
+``<stem>_laneNN.json`` (the reference's ``data/tiers/ckpt.py`` format),
+and its sidecar keeps a pointer to them; checkpoints cross between the
+packages both ways.  The reference's ``"tiered"`` kind comes with the
+tiered corpus (ROADMAP queue A11) and is refused on restore.
 """
 from __future__ import annotations
 
@@ -21,39 +24,54 @@ import dataclasses
 import json
 import os
 import pathlib
+from concurrent.futures import ThreadPoolExecutor
 
 from ..checkpoint.ckpt import load_state, save_state
 from ..core.engine import ResumeState, StageEnd
 from ..core.timemodel import SimulatedClock
 from ..data.plane import StreamingDataset
+from ..dist.runtime import DistributedDataset
 
 _PENDING_KINDS = {
-    "distributed": "the distributed slice (ROADMAP queue A8)",
     "tiered": "the tiered-corpus slice (ROADMAP queue A11)",
 }
 
 
 # ------------------------------------------------------------ dataset state
 def _dataset_kind(dataset) -> str:
+    if isinstance(dataset, DistributedDataset):
+        return "distributed"
     return "streaming" if isinstance(dataset, StreamingDataset) else "plain"
 
 
 def dataset_state(dataset) -> dict:
-    """JSON-safe runtime state of a dataset: the plane's meter counters and
-    window cursor; nothing for a host-resident dataset."""
-    if _dataset_kind(dataset) == "plain":
+    """JSON-safe runtime state of a dataset: the meter counters and window
+    cursors (per lane, with the elastic maps, for a distributed dataset);
+    nothing for a host-resident dataset."""
+    kind = _dataset_kind(dataset)
+    if kind == "plain":
         return {"kind": "plain"}
-    return {"kind": "streaming", "meter": dataset.meter.snapshot(),
-            "window_cursor": dataset.windows[0].cursor()}
+    if kind == "streaming":
+        return {"kind": "streaming", "meter": dataset.meter.snapshot(),
+                "window_cursor": dataset.windows[0].cursor()}
+    state = {"kind": "distributed",
+             "host_meters": [m.snapshot() for m in dataset.host_meters],
+             "access_meter": dataset._access.snapshot(),
+             "window_cursor": dataset.stacked[0].cursor()}
+    elastic = getattr(dataset, "elastic_state", None)
+    if elastic is not None:
+        state["elastic"] = elastic()
+    return state
 
 
 def restore_dataset(dataset, state: dict, n_t: int) -> dict:
     """Bring a *freshly constructed* dataset to the checkpointed state.
 
-    Order matters: (1) re-land the resident prefix ``[0, n_t)`` (real
-    storage reads), cross-checked against the checkpointed window cursor;
-    (2) capture that restart I/O as the returned ``rewarm`` record; (3)
-    overwrite the meter with the checkpointed counters — the resumed
+    Order matters: (1) elastic maps first, so lanes rebuild under the
+    checkpointed ownership; (2) re-land the resident prefix ``[0, n_t)``
+    (real storage reads), cross-checked against the checkpointed window
+    cursor; (3) capture that restart I/O as the returned ``rewarm`` record;
+    (4) overwrite the meters with the checkpointed counters — the resumed
     accounting continues exactly where the uninterrupted run would be,
     with the restart cost reported separately instead of silently
     double-counted."""
@@ -68,9 +86,25 @@ def restore_dataset(dataset, state: dict, n_t: int) -> dict:
             f"checkpoint was taken on a {kind!r} dataset but the resume "
             f"constructed a {have!r} one ({type(dataset).__name__}) — "
             f"meters/cursors would be silently mismatched; resume with the "
-            f"same data-plane configuration")
+            f"same hosts / data-plane configuration")
     if kind == "plain":
         return {}
+    if kind == "distributed":
+        if "elastic" in state:
+            restore = getattr(dataset, "restore_elastic_state", None)
+            if restore is None:
+                raise ValueError(
+                    "checkpoint carries elastic state but the dataset is "
+                    f"a plain {type(dataset).__name__}")
+            restore(state["elastic"])
+        dataset.window(n_t)
+        _check_cursor(state["window_cursor"],
+                      dataset.stacked[0].cursor(), n_t)
+        rewarm = dataset.meter.snapshot()
+        for m, snap in zip(dataset.host_meters, state["host_meters"]):
+            m.restore(snap)
+        dataset._access.restore(state["access_meter"])
+        return rewarm
     dataset.window(n_t)
     _check_cursor(state["window_cursor"], dataset.windows[0].cursor(), n_t)
     rewarm = dataset.meter.snapshot()
@@ -85,16 +119,60 @@ def _check_cursor(saved, rebuilt, n_t: int) -> None:
     have been resident *beyond* ``n_t`` (e.g. a full-corpus eval view
     forced residency), which the resumed ``run()`` re-establishes itself.
     But a rewarm that *overshoots* the saved cursor means the resumed
-    dataset was built over different shards — its 'resident' window
-    would silently diverge from the permutation prefix the schedule
-    believes is loaded."""
+    dataset was built over different shards or ownership — its
+    'resident' window would silently diverge from the permutation prefix
+    the schedule believes is loaded.  A distributed cursor is checked lane
+    by lane."""
     if saved is None or rebuilt is None:
         return
-    if rebuilt["n_valid"] > saved["n_valid"]:
+    s = saved.get("counts", [saved.get("n_valid")])
+    r = rebuilt.get("counts", [rebuilt.get("n_valid")])
+    if len(s) != len(r) or any(ri > si for si, ri in zip(s, r)):
         raise ValueError(
             f"re-warmed window cursor {rebuilt} overshoots the "
             f"checkpointed cursor {saved} at n_t={n_t}: the resumed "
-            f"dataset's sharding differs from the checkpointed run's")
+            f"dataset's sharding/ownership differs from the checkpointed "
+            f"run's")
+
+
+# ------------------------------------------------------- per-lane slice files
+LANE_POINTER_KEY = "lane_files"
+
+
+def is_lane_pointer(value) -> bool:
+    """Is this ``host_meters`` entry a lane-file pointer (vs inline list)?"""
+    return isinstance(value, dict) and LANE_POINTER_KEY in value
+
+
+def write_lane_slices(directory, stem: str, host_meters) -> dict:
+    """Write one ``<stem>_laneNN.json`` per lane meter snapshot, each by its
+    own thread (the one-process stand-in for every host writing its own
+    slice) and each through a temporary name and ``os.replace``; return
+    the pointer to keep in the main sidecar."""
+    d = pathlib.Path(directory)
+    names = [f"{stem}_lane{i:02d}.json" for i in range(len(host_meters))]
+
+    def write_one(i: int) -> None:
+        tmp = d / f".tmp_{names[i]}"
+        tmp.write_text(json.dumps({"lane": i, "meter": host_meters[i]}))
+        os.replace(tmp, d / names[i])
+
+    with ThreadPoolExecutor(max_workers=min(8, len(names)) or 1) as pool:
+        list(pool.map(write_one, range(len(names))))
+    return {LANE_POINTER_KEY: names}
+
+
+def load_lane_slices(directory, pointer: dict) -> list[dict]:
+    """Inflate a lane pointer back into the in-order meter snapshot list."""
+    d = pathlib.Path(directory)
+    return [json.loads((d / name).read_text())["meter"]
+            for name in pointer[LANE_POINTER_KEY]]
+
+
+def unlink_lane_slices(directory, stem: str) -> None:
+    """Remove a checkpoint's lane files (the keep-rotation cleanup)."""
+    for f in pathlib.Path(directory).glob(f"{stem}_lane*.json"):
+        f.unlink(missing_ok=True)
 
 
 def _point_dicts(trace) -> list[dict]:
@@ -151,6 +229,14 @@ class StageCheckpointer:
         }
         if self.spec is not None:
             meta["spec"] = self.spec
+        ds_state = meta["dataset"]
+        if ds_state["kind"] == "distributed":
+            # each lane writes its own slice file and the sidecar keeps a
+            # pointer; lanes land before the .npz is published, so readers
+            # (which key on the .npz) never see a checkpoint whose lanes
+            # are missing
+            ds_state["host_meters"] = write_lane_slices(
+                d, path.name, ds_state["host_meters"])
         save_state(tmp, {"params": end.params, "opt": end.opt_state},
                    meta=meta)
         os.replace(tmp.with_suffix(".json"), path.with_suffix(".json"))
@@ -160,6 +246,7 @@ class StageCheckpointer:
         for old in ckpts[: -self.keep]:
             old.unlink(missing_ok=True)
             old.with_suffix(".json").unlink(missing_ok=True)
+            unlink_lane_slices(d, old.stem)
         return path
 
     def latest(self) -> pathlib.Path | None:
@@ -182,6 +269,10 @@ def peek_stage_meta(path) -> dict:
 
 def load_stage_checkpoint(path, params_like, opt_like=None) -> "RestoredRun":
     trees, meta = load_state(path, {"params": params_like, "opt": opt_like})
+    ds_state = meta.get("dataset") or {}
+    if is_lane_pointer(ds_state.get("host_meters")):
+        ds_state["host_meters"] = load_lane_slices(
+            pathlib.Path(path).parent, ds_state["host_meters"])
     return RestoredRun(params=trees["params"], opt_state=trees["opt"],
                        meta=meta)
 

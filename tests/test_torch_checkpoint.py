@@ -299,8 +299,10 @@ def test_resume_refuses_a_spec_that_differs_from_the_checkpoint(tmp_path):
         P.resume_session(tmp_path / "none", device="cpu")
 
 
-@pytest.mark.parametrize("kind,needle", [("distributed", "queue A8"),
-                                         ("tiered", "queue A11")])
+@pytest.mark.parametrize("kind,needle", [
+    # ported: restoring it into another kind of dataset is refused
+    ("distributed", "constructed a 'plain' one"),
+    ("tiered", "queue A11")])
 def test_restore_names_the_slice_of_an_unported_dataset_kind(kind, needle):
     with pytest.raises(ValueError, match=needle):
         tstage.restore_dataset(object(), {"kind": kind}, 64)

@@ -231,9 +231,20 @@ def test_plane_and_prefetcher_errors_match_the_reference(case):
 @pytest.mark.parametrize("kw", [{"windows": ()}, {"shardings": object()}],
                          ids=["windows", "shardings"])
 def test_multi_host_plane_arguments_name_their_slice(kw):
-    with pytest.raises(NotImplementedError, match="queue A8"):
-        tplane.StreamingDataset([tshards.InMemoryShardStore(STORE, 4)],
-                                device="cpu", **kw)
+    """``windows=`` (a host's lanes of the stacked window) is checked as in
+    the reference; ``shardings=`` (a JAX ``NamedSharding``) has no
+    counterpart and says where the port places windows."""
+    store = [tshards.InMemoryShardStore(STORE, 4)]
+    if "windows" in kw:
+        with pytest.raises(ValueError) as te:
+            tplane.StreamingDataset(store, device="cpu", **kw)
+        with pytest.raises(ValueError) as je:
+            jplane.StreamingDataset([jshards.InMemoryShardStore(STORE, 4)],
+                                    **kw)
+        assert str(te.value) == str(je.value)
+    else:
+        with pytest.raises(NotImplementedError, match="topology's device"):
+            tplane.StreamingDataset(store, device="cpu", **kw)
 
 
 # ------------------------------------------------------------------ prefetch

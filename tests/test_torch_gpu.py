@@ -633,3 +633,82 @@ def test_convex_plane_on_card_equals_the_host_path(policy):
     m = plane.meta["data_plane"]
     assert m["examples_loaded"] == m["examples_uploaded"] == 4096
     assert m["examples_accessed"] == sess.clock.data_accesses
+
+
+# ------------------------------------------------- the multi-host runtime
+def test_b1_summed_over_lanes_equals_one_launch_on_the_rows():
+    """B1 launched once per non-empty lane of a 4-host window and summed in
+    lane order equals one launch on the lanes' rows concatenated, to 1e-6
+    relative (float32 re-association); the empty lane is not launched."""
+    _need_card()
+    from repro_torch.dist import DistributedObjective
+    from repro_torch.data.device_window import HostWindows
+    X, y, w = _inputs(12288, 300, seed=7)
+    counts = (4096, 3072, 0, 5120)
+    cap = max(counts)
+    fields = [torch.zeros((4, cap) + t.shape[1:], device="cuda")
+              for t in (X, y)]
+    lo = 0
+    for h, m in enumerate(counts):
+        fields[0][h, :m], fields[1][h, :m] = X[lo:lo + m], y[lo:lo + m]
+        lo += m
+    hw = HostWindows(fields, host_counts=counts)
+    for loss in ("squared_hinge", "logistic"):
+        obj = DistributedObjective(loss, 1e-3)
+        ops.reset_calls()
+        f, g = obj.value_and_grad(w, hw)
+        assert ops.CALLS["linear_value_grad"] == 3
+        L1, g1 = ops.linear_value_grad(X[:lo], y[:lo], w, loss=loss)
+        f1 = L1 / lo + 0.5 * 1e-3 * torch.sum(w * w)
+        g1 = g1 / lo + 1e-3 * w
+        assert abs(float(f) - float(f1)) <= 1e-6 * abs(float(f1))
+        assert float((g - g1).abs().max()) <= \
+            1e-6 * max(1.0, float(g1.abs().max()))
+
+
+def test_stacked_window_grows_in_place_and_repeats_its_bits():
+    _need_card()
+    from repro_torch.data.device_window import StackedDeviceWindow
+    rng = np.random.default_rng(1)
+    chunks = [(h, (rng.standard_normal((k, 65)) * 1e3).astype(np.float32))
+              for h, k in ((0, 64), (2, 1), (1, 191), (0, 256), (3, 512),
+                           (2, 127))]
+    wins = [StackedDeviceWindow(num_hosts=4, capacity=600, item_shape=(65,),
+                                dtype=np.float32) for _ in range(2)]
+    for win in wins:
+        ptr = win.buffer.data_ptr()
+        for h, c in chunks:
+            win.append(h, c)
+        assert win.buffer.data_ptr() == ptr and win.buffer.is_cuda
+    assert torch.equal(wins[0].buffer, wins[1].buffer)
+    for h in range(4):
+        rows = [c for lane, c in chunks if lane == h]
+        host = torch.from_numpy(np.concatenate(rows))
+        assert torch.equal(wins[0].buffer[h, :len(host)].cpu(), host)
+    wins[0].reset_lane(3)
+    assert not wins[0].buffer[3].any() and wins[0].counts[3] == 0
+
+
+def test_faulted_four_host_run_on_card_equals_the_unfaulted_one():
+    _need_card()
+    spec = P.RunSpec(
+        data=P.DataSpec(dataset="w8a_like", scale=0.5, lam=1e-3,
+                        plane="plane"),
+        policy=P.PolicySpec("two_track", {"final_steps": 8}),
+        optimizer=P.OptimizerSpec("newton_cg", {"hessian_fraction": 0.2}),
+        schedule=P.ScheduleSpec(n0=128), topology=P.TopologySpec(hosts=4),
+        elastic=P.ElasticSpec(enabled=True))
+    out = {}
+    for name, el in (("whole", P.ElasticSpec(enabled=True)),
+                     ("killed", P.ElasticSpec(faults=("kill@2:1",)))):
+        ops.reset_calls()
+        tr = P.build(spec.replace(elastic=el), device="cuda").run()
+        out[name] = (tr, ops.CALLS["linear_value_grad"])
+    (whole, w_calls), (killed, k_calls) = out["whole"], out["killed"]
+    for col in ("step", "stage", "window", "time", "accesses", "f_window",
+                "f_full"):
+        assert killed.column(col) == whole.column(col), col
+    assert torch.equal(killed.params, whole.params)
+    assert k_calls == w_calls > 0
+    (kill,) = killed.meta["elastic_events"][0]["events"]
+    assert kill["lanes"][0]["reread_examples"] == kill["lanes"][0]["window"]

@@ -28,6 +28,13 @@ CONVEX_MODULES = [
     "repro_torch.core.theory", "repro_torch.launch.methods",
     "repro_torch.examples.quickstart", "repro_torch.examples.two_track_demo",
 ]
+# the multi-host runtime and elastic recovery
+DIST_MODULES = [
+    "repro_torch.dist", "repro_torch.dist.ownership",
+    "repro_torch.dist.topology", "repro_torch.dist.collectives",
+    "repro_torch.dist.runtime", "repro_torch.elastic.faults",
+    "repro_torch.elastic.runtime", "repro_torch.elastic.checkpoint",
+]
 
 
 def test_every_module_imports_with_jax_and_repro_blocked():
@@ -51,6 +58,7 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     names = json.loads(out.stdout)
     assert len(names) >= 50
     assert set(CONVEX_MODULES) <= set(names)
+    assert set(DIST_MODULES) <= set(names)
     assert out.stdout.count("\n") == 1         # no module printed a thing
 
 

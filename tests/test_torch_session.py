@@ -55,25 +55,40 @@ LM = dict(data=R.DataSpec(kind="lm"),
 
 @pytest.mark.parametrize("change,needle", [
     (dict(LM, model=R.ModelSpec(arch="granite-moe-1b-a400m")), "moe slice"),
-    # the single-host plane and checkpoints are ported: what stays refused
-    # is the tiered corpus on the plane, checkpoints of elastic runs and
-    # serving an LM while it trains on the plane
+    # the plane, checkpoints, multiple hosts and the elastic runtime are
+    # ported: what stays refused is the tiered corpus, observability (the
+    # fleet recorder of a multi-host run too), and serving, also of an
+    # elastic multi-host run or an LM on the plane
     (dict(data=R.DataSpec(plane="plane", tiering=R.TieringSpec(
         enabled=True, hbm_bytes=1))), "tiered-corpus slice"),
-    (dict(topology=R.TopologySpec(hosts=2)), "distributed slice"),
+    (dict(data=R.DataSpec(plane="plane"), topology=R.TopologySpec(hosts=2),
+          obs=R.ObsSpec(enabled=True, fleet=True)), "observability slice"),
     (dict(data=R.DataSpec(tiering=R.TieringSpec(enabled=True, hbm_bytes=1))),
      "tiered-corpus slice"),
-    (dict(elastic=R.ElasticSpec(enabled=True)), "elastic slice"),
+    (dict(data=R.DataSpec(plane="plane"), topology=R.TopologySpec(hosts=4),
+          elastic=R.ElasticSpec(enabled=True),
+          serve=R.ServeSpec(enabled=True)), "serve slice"),
     (dict(checkpoint=R.CheckpointSpec(directory="ck"),
-          elastic=R.ElasticSpec(enabled=True)), "elastic slice"),
+          topology=R.TopologySpec(hosts=2), data=R.DataSpec(
+              plane="plane", tiering=R.TieringSpec(enabled=True,
+                                                   hbm_bytes=1))),
+     "tiered-corpus slice"),
     (dict(obs=R.ObsSpec(enabled=True)), "observability slice"),
     (dict(serve=R.ServeSpec(enabled=True)), "serve slice"),
     (dict(LM, data=R.DataSpec(kind="lm", plane="plane"),
           model=R.ModelSpec(arch="falcon-mamba-7b"),
           serve=R.ServeSpec(enabled=True)), "serve slice"),
     (dict(policy=R.PolicySpec("traffic_driven")), "serve slice"),
+    # one torch.distributed process per host: refused before any process
+    # group is asked for, convex and LM alike
+    (dict(data=R.DataSpec(plane="plane"),
+          topology=R.TopologySpec(kind="process", hosts=2)),
+     "multi-process slice"),
+    (dict(LM, model=R.ModelSpec(arch="falcon-mamba-7b"),
+          topology=R.TopologySpec(kind="process", hosts=2)),
+     "multi-process slice"),
 ], ids=["lm", "plane", "hosts", "tiering", "elastic", "checkpoint", "obs",
-        "serve", "adamw_lm", "traffic_driven"])
+        "serve", "adamw_lm", "traffic_driven", "process", "process_lm"])
 def test_unported_branches_raise_spec_error(change, needle):
     spec = R.RunSpec(**{**BASE, **change})
     with pytest.raises(P.SpecError, match="not yet ported") as e:

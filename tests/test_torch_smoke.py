@@ -5,7 +5,8 @@ by hooks on the kernel's autograd nodes, which it finds by name with
 on the reduced LMs, the loss's graph must hold one such node per layer of
 the kernel's type, under the names the breakdown looks for, with remat
 on; and each convex run of its method phase must call the kernel wrapper
-as often as its trace implies."""
+as often as its trace implies.  Its plane, resume, multi-host and elastic
+phases run here small."""
 import sys
 from pathlib import Path
 
@@ -173,7 +174,8 @@ def _cpu_rt(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     monkeypatch.setattr(chip_smoke, "FAILED", [])
     ops = type("Ops", (), {"CALLS": counts, "reset_calls": staticmethod(
-        lambda: counts.update(linear_value_grad=0))})
+        lambda: counts.update(linear_value_grad=0)),
+        "linear_value_grad": staticmethod(counted)})
     return {"api": _OnCPU(), "ops": ops, "methods": methods,
             "window_rows": window_rows, "tree_leaves": tree_leaves,
             "build_dir": tmp_path}
@@ -266,3 +268,60 @@ def test_kill_and_resume_stitches_bitwise(monkeypatch, tmp_path, run):
     assert 0 < len(row["checkpoints_left_on_disk"]) <= \
         2 * spec.checkpoint.keep                # .npz and .json, rolled
     assert list(tmp_path.iterdir()) == []
+
+
+def test_dist_phases_hold_their_claims_on_the_cpu(monkeypatch, tmp_path):
+    """chip_smoke.py's multi-host and elastic convex phases at 1/24 of
+    their size on the CPU: B1 called once per non-empty lane per step as
+    ``dist_kernel_calls`` reads the trace, the reference benchmarks'
+    claims, the killed run bit for bit, the straggler's shards migrated,
+    the distributed resume bitwise; the memmap store is gone."""
+    rt = _cpu_rt(monkeypatch, tmp_path)
+    # card timings (CUDA events) cannot run here: each timed call runs once
+    monkeypatch.setattr(chip_smoke, "spin_cycles_per_s", lambda torch: 1.0)
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda torch, fn, spin: (
+        fn(), {"ms": 0.0, "call_ms": 0.0})[1])
+    assert chip_smoke.dist_convex_phase(torch, rt, scale=0.25) > 0
+    out = chip_smoke.elastic_convex_phase(torch, rt, scale=0.25)
+    assert chip_smoke.FAILED == []
+    assert out["straggler"]["shards_migrated"] > 0
+    assert out["host_loss"]["reread_examples"] == \
+        out["host_loss"]["window_at_loss"] > 0
+    assert list(tmp_path.iterdir()) == []
+
+
+def test_process_phase_runs_over_gloo(monkeypatch, tmp_path):
+    rt = _cpu_rt(monkeypatch, tmp_path)
+    row = chip_smoke.process_phase(torch, rt, device="cpu")
+    assert chip_smoke.FAILED == [] and row["backend"] == "gloo"
+    assert all(row["views_bitwise_simulated"])
+
+
+def test_dist_lm_phase_specs_validate():
+    """The LMs of chip_smoke.py's multi-host phase: batches that split over
+    the hosts, every lane non-empty from the first stage (the shard
+    clamped to n0 // hosts), and one layer of falcon-mamba-7b."""
+    from repro_torch.api import session
+    from repro_torch.dist import ShardOwnership
+    for arch, kw in (
+            ("falcon-mamba-7b", dict(corpus=chip_smoke.LM_CORPUS,
+                                     seq_len=chip_smoke.LM_SEQ,
+                                     layers=chip_smoke.DIST_LM_LAYERS,
+                                     batch=chip_smoke.LM_BATCH)),
+            ("recurrentgemma-9b", dict(corpus=chip_smoke.HY_CORPUS,
+                                       seq_len=chip_smoke.HY_SEQ,
+                                       layers=chip_smoke.HY_LAYERS,
+                                       batch=chip_smoke.DIST_HY_BATCH))):
+        spec = chip_smoke.lm_spec(P, arch=arch, reduced=False,
+                                  policy="fixed_steps",
+                                  n0=kw["corpus"] // 2,
+                                  fixed=chip_smoke.SHORT_STEPS, **kw)
+        spec = spec.replace(topology=P.TopologySpec(hosts=chip_smoke.HOSTS))
+        session._validate(spec)
+        assert kw["batch"] % chip_smoke.HOSTS == 0
+        shard = min(spec.data.shard_size, spec.schedule.n0 // chip_smoke.HOSTS)
+        full = ShardOwnership(num_shards=-(-kw["corpus"] // shard),
+                              num_hosts=chip_smoke.HOSTS, shard_size=shard,
+                              num_examples=kw["corpus"]
+                              ).min_full_participation_window()
+        assert full <= spec.schedule.n0
