@@ -109,6 +109,24 @@ shards) and elastic recovery, each check failing the run at its end:
  3h. a one-process ProcessTopology over NCCL: all-reduce, all-gather, and
     a DistributedDataset under it bit for bit the simulated one-host one.
 
+The transformer and moe families (``impl="xla"``: plain PyTorch layers,
+no kernel, as in the reference), each check failing the run at its end:
+ 3i. qwen3-0.6b (dense, qk-norm) two-track and granite-moe-1b-a400m (32
+    experts, top-8) under fixed_steps, each at its full published width
+    and depth, on the plane: one line per stage, the run's peak memory,
+    no launch of B1-B4; a train step with remat on, on again and off held
+    bitwise; the step taken apart (forward, backward, AdamW, each with
+    its peak; the moe aux terms).
+ 3j. the rest of the zoo at full width and one layer (internlm2-1.8b,
+    yi-9b, stablelm-12b, musicgen-medium, llama4-scout-17b-a16e,
+    qwen2-vl-2b with random embeds and M-RoPE positions): loss_fn and its
+    gradients at 1 x 512, finite, with ms and peak memory.
+ 3k. BENCH_workloads.json's nine presets without serve or obs through
+    ``repro_torch.api.run(name, device="cuda")``, each with the reference
+    sweep's claims (the mamba and rglru presets kernel-routed); the serve
+    and obs presets refused, naming their slice.
+ 4 also holds the reduced qwen3-0.6b and granite-moe-1b-a400m to the CPU.
+
 Then the ``{"kernels": [...]}`` line, and last ``{"ok": true, ...}``.
 """
 from __future__ import annotations
@@ -872,36 +890,33 @@ def convex_methods_phase(torch, rt) -> int:
 
 def lm_spec(api, *, arch: str = "falcon-mamba-7b", reduced: bool, policy,
             corpus: int, seq_len: int, n0: int,
-            max_stage_iters: int | None = None, layers: int = LM_LAYERS,
-            batch: int = LM_BATCH, eval_rows: int = 16,
-            fixed: tuple = (3, 3), plane: str = "plane"):
-    """launch/train.py's LM RunSpec (to_run_spec): the streaming plane by
-    default (the trainer's ``use_plane=True``; shards of 64 sequences),
-    adamw_lm, a batch-cost clock that waits on expansion and carries the
-    Adam moments across stages."""
+            max_stage_iters: int | None = None,
+            layers: int | None = LM_LAYERS, batch: int = LM_BATCH,
+            eval_rows: int = 16, fixed: tuple = (3, 3),
+            plane: str = "plane"):
+    """The trainer's LM RunSpec (``launch/train.py``'s ``to_run_spec``):
+    the streaming plane by default (the trainer's ``use_plane=True``;
+    shards of 64 sequences), adamw_lm at lr 3e-4, a batch-cost clock that
+    waits on expansion and carries the Adam moments across stages;
+    ``policy`` "two_track" (8 final steps) or "fixed_steps" (``fixed``:
+    steps a stage, final steps).  The full config cut to ``layers`` (all
+    of them when None), or the reduced one in float32."""
+    from repro_torch import configs
+    from repro_torch.launch import train
+    two_track = policy == "two_track"
+    tc = train.TrainConfig(
+        schedule="two_track" if two_track else "bet", batch_size=batch,
+        seq_len=seq_len, n0=n0, corpus_size=corpus, inner_steps=fixed[0],
+        final_steps=8 if two_track else fixed[1], lr=3e-4,
+        max_stage_steps=max_stage_iters, eval_rows=eval_rows,
+        use_plane=plane == "plane")
+    cfg = configs.get(arch)
+    spec = train.to_run_spec(configs.reduced(cfg) if reduced else cfg, tc)
     if reduced:
-        model = api.ModelSpec(arch=arch, reduced=True,
-                              overrides={"dtype": "float32"})
+        overrides = {"dtype": "float32"}
     else:
-        model = api.ModelSpec(arch=arch, reduced=False,
-                              overrides={"num_layers": layers})
-    if policy == "two_track":
-        pol = api.PolicySpec("two_track", {
-            "final_steps": 8, "max_stage_iters": max_stage_iters,
-            "condition": "eval", "final_eval_full": True})
-    else:
-        pol = api.PolicySpec("fixed_steps", {"inner_steps": fixed[0],
-                                             "final_steps": fixed[1]})
-    return api.RunSpec(
-        name=f"lm_{policy}",
-        data=api.DataSpec(kind="lm", corpus_size=corpus, seq_len=seq_len,
-                          eval_rows=eval_rows, plane=plane),
-        model=model, policy=pol,
-        optimizer=api.OptimizerSpec("adamw_lm", {"lr": 3e-4,
-                                                 "batch_size": batch}),
-        schedule=api.ScheduleSpec(n0=n0, step_cost="batch",
-                                  wait_on_expand=True, carry_state=True,
-                                  clock={"preloaded": n0}))
+        overrides = {} if layers is None else {"num_layers": layers}
+    return spec.replace(model=spec.model.replace(overrides=overrides))
 
 
 def stage_lines(sess, tr, stamps, f0, t0, path: str) -> list:
@@ -1094,7 +1109,7 @@ def remat_regions(cfg, seq_len: int) -> int:
 
 
 def step_breakdown(torch, rt, sess, params, batch_size: int, path: str,
-                   parts: dict) -> dict:
+                   parts: dict, impl: str = "pallas") -> dict:
     """Where a train step's time and memory go: host-clock segments, each
     ended by a synchronize, of one step taken apart (forward with the
     graph, the backward, the AdamW update), one f̂ probe, and each
@@ -1105,9 +1120,10 @@ def step_breakdown(torch, rt, sess, params, batch_size: int, path: str,
     timed alone at the path's shape; its plain-version VJP is timed inside
     the step's backward by hooks on each of its nodes, and the
     rematerialization of each region inside the backward is timed apart
-    and taken out of the VJP that holds it (``hook_vjps``).  Taken after
-    the main path's counts were read; the launches here are not counted
-    there."""
+    and taken out of the VJP that holds it (``hook_vjps``).  ``impl`` is
+    the family's layer implementation; the line carries the loss's
+    metrics (a moe stack's aux terms too).  Taken after the main path's
+    counts were read; the launches here are not counted there."""
     T, adam, tree_map = rt["transformer"], rt["adam"], rt["tree_map"]
     cfg = sess.model_config
     rows = first_rows(rt, sess, batch_size)
@@ -1137,8 +1153,8 @@ def step_breakdown(torch, rt, sess, params, batch_size: int, path: str,
             p = tree_map(lambda x: x.detach().requires_grad_(True), params)
             with torch.enable_grad():
                 torch.cuda.reset_peak_memory_stats()
-                loss = timed("forward_s", lambda: T.loss_fn(
-                    cfg, p, batch, impl="pallas")[0])
+                loss, metrics = timed("forward_s", lambda: T.loss_fn(
+                    cfg, p, batch, impl=impl))
                 peak("forward")
                 leaves = rt["tree_leaves"](p)
                 handles = hook_vjps(loss, node_names, seg, sync, recompute)
@@ -1155,6 +1171,7 @@ def step_breakdown(torch, rt, sess, params, batch_size: int, path: str,
         it = iter(flat)
         grads = tree_map(lambda _: next(it), p)
         del p, loss, flat
+        metrics = {k: v.detach() for k, v in metrics.items()}
         torch.cuda.reset_peak_memory_stats()
         timed("adamw_s", lambda: adam.adamw_update(
             params, grads, opt_state, lr=3e-4, weight_decay=0.1))
@@ -1166,6 +1183,7 @@ def step_breakdown(torch, rt, sess, params, batch_size: int, path: str,
             timed(f"{name}_forward_s", lambda: call(*args))
             del args
     out = {"path": path, "breakdown": "one train step", **seg,
+           "metrics": {k: float(v) for k, v in metrics.items()},
            "layers": cfg.num_layers,
            "recompute_share_of_backward":
                seg["recompute_in_backward_s"] / seg["backward_s"]}
@@ -1197,7 +1215,7 @@ def leaf_names(tree, prefix: str = "") -> list:
 
 
 def remat_bitwise(torch, rt, sess, params, batch_size: int,
-                  path: str) -> dict:
+                  path: str, impl: str = "pallas") -> dict:
     """One full-width train step's loss and gradients from ``params`` on
     the path's first batch with ``remat`` on, on again, and off: the
     second run with remat and the run without are each held bitwise
@@ -1219,7 +1237,7 @@ def remat_bitwise(torch, rt, sess, params, batch_size: int,
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            loss = T.loss_fn(cfg, p, batch, impl="pallas", remat=remat)[0]
+            loss = T.loss_fn(cfg, p, batch, impl=impl, remat=remat)[0]
             torch.cuda.synchronize()
             out[f"{key}_forward_s"] = time.perf_counter() - t0
             out[f"{key}_forward_peak_gb"] = \
@@ -2224,6 +2242,246 @@ def process_phase(torch, rt, device: str = "cuda") -> dict:
     return row
 
 
+# the transformer and moe families' main paths (launch/train.py's spec):
+# qwen3-0.6b (dense, qk-norm) two-track and granite-moe-1b-a400m (32
+# experts, top-8) under fixed_steps, each at its full published width and
+# depth; 512 Zipf sequences of 1,025 tokens, batch 8 x 1,024, n0 64, a
+# probe of 16 rows, 16 steps a racing stage or 8 a fixed stage, 8 final
+TF_RUNS = (("qwen3-0.6b", "two_track"),
+           ("granite-moe-1b-a400m", "fixed_steps"))
+TF_BATCH, TF_SEQ = 8, 1024
+TF_CORPUS, TF_N0, TF_EVAL_ROWS, TF_STAGE_ITERS = 512, 64, 16, 16
+TF_FIXED = (8, 8)
+# the rest of the zoo at full width and one layer: one forward and
+# backward of loss_fn at batch 1 x 512, no optimizer step
+ZOO = ("internlm2-1.8b", "yi-9b", "stablelm-12b", "musicgen-medium",
+       "llama4-scout-17b-a16e", "qwen2-vl-2b")
+ZOO_BATCH, ZOO_SEQ = 1, 512
+# BENCH_workloads.json's presets that use neither serve nor obs, run
+# through repro_torch.api.run; the other two wait for their slice (A11)
+BENCH_PRESETS = ("qwen3@2stages", "internlm2@2hosts", "stablelm@stream",
+                 "falcon-mamba@2stages", "falcon-mamba@stream",
+                 "recurrentgemma@2stages", "granite-moe@2stages",
+                 "granite-moe@4hosts-elastic", "llama4-scout@2stages")
+REFUSED_PRESETS = ("recurrentgemma@serve", "yi@3stages-obs")
+
+
+def transformer_main_path_phase(torch, rt, arch: str, policy: str) -> dict:
+    """A transformer or moe main path at full width and depth: one line
+    per stage, the run's peak memory, no launch of any kernel (the
+    families run impl="xla", as in the reference); then one train step's
+    loss and gradients with remat on, on again and off, held bitwise, and
+    the step taken apart (forward, backward, AdamW, each with its peak;
+    a moe stack's aux terms)."""
+    api, ops = rt["api"], rt["ops"]
+    spec = lm_spec(api, arch=arch, reduced=False, policy=policy,
+                   corpus=TF_CORPUS, seq_len=TF_SEQ, n0=TF_N0,
+                   max_stage_iters=TF_STAGE_ITERS, layers=None,
+                   batch=TF_BATCH, eval_rows=TF_EVAL_ROWS, fixed=TF_FIXED)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sess = api.build(spec, device="cuda")
+    cfg = sess.model_config
+    family = rt["resolve_family"](spec.model, cfg)
+    path = family.name
+    n_params = sum(t.numel() for t in rt["tree_leaves"](sess.w0))
+    f0 = float(sess.objective(sess.w0, sess.eval_data))
+    torch.cuda.synchronize()
+    emit({"path": path, "arch": cfg.name, "family": family.name,
+          "impl": family.impl, "layers": cfg.num_layers,
+          "layer_types": sorted(set(cfg.layer_types())),
+          "d_model": cfg.d_model, "heads": cfg.num_heads,
+          "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+          "d_ff": cfg.d_ff, "qk_norm": cfg.qk_norm,
+          "experts": cfg.num_experts, "experts_per_token":
+              cfg.experts_per_token, "moe_d_ff": cfg.moe_d_ff,
+          "vocab": cfg.vocab_size, "dtype": str(cfg.dtype),
+          "params": n_params, "build_s": time.perf_counter() - t0,
+          "f_full_w0": f0, "spec": spec.to_dict()})
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_calls()
+    tr, stamps, t0, wall = timed_run(torch, sess)
+    launches = dict(ops.CALLS)
+    peak = torch.cuda.max_memory_allocated()
+    rows = stage_lines(sess, tr, stamps, f0, t0, path)
+    values = (tr.column("f_window") + tr.column("f_full")
+              + [p.extra["f_fast_on_t"] for p in tr.points
+                 if "f_fast_on_t" in p.extra])
+    summary = {"path": path, "arch": cfg.name, "policy": policy,
+               "stages": tr.meta["stages"], "steps": len(tr.points),
+               "race_overshoot": tr.meta.get("race_overshoot", 0),
+               "host_transfers": tr.meta["host_transfers"],
+               "transfers_per_stage": [r["host_transfers"] for r in rows],
+               "launches": launches, "wall_s": wall,
+               "wall_s_per_step": wall / len(tr.points),
+               "peak_memory_gb": peak / 1e9,
+               "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+               "f_full_w0": f0, "f_full_final": tr.final().f_full,
+               "sim_time": sess.clock.time,
+               "data_accesses": sess.clock.data_accesses}
+    emit(summary)
+    if not all(math.isfinite(v) for v in values):
+        fail_later(f"{cfg.name}: non-finite loss in the trace")
+    if any(launches.values()):
+        fail_later(f"{cfg.name}: the {family.name} family launched "
+                   f"kernels {launches}")
+    params = tr.params
+    sess.w0 = None
+    del tr
+    gc.collect()
+    summary["remat"] = remat_bitwise(torch, rt, sess, params, TF_BATCH,
+                                     path, family.impl)
+    summary["breakdown"] = step_breakdown(torch, rt, sess, params, TF_BATCH,
+                                          path, {}, family.impl)
+    del sess, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary
+
+
+def zoo_batch(torch, cfg, seed: int = 0, device: str = "cuda") -> dict:
+    """A batch of ZOO_BATCH x ZOO_SEQ uniform random tokens from
+    ``seed``; for embedding inputs random ``embeds``, and under M-RoPE
+    (3, B, S) positions of a 16 x 32 patch grid (t 0, h, w)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    tok = torch.randint(0, cfg.vocab_size, (ZOO_BATCH, ZOO_SEQ + 1),
+                        generator=gen, device=device)
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    if cfg.input_mode == "embeddings":
+        batch["embeds"] = torch.randn((ZOO_BATCH, ZOO_SEQ, cfg.d_model),
+                                      generator=gen, device=device)
+    if cfg.mrope:
+        i = torch.arange(ZOO_SEQ, device=device)
+        grid = torch.stack([torch.zeros_like(i), i // 32, i % 32])
+        batch["positions"] = grid[:, None].expand(3, ZOO_BATCH, ZOO_SEQ)
+    return batch
+
+
+def zoo_phase(torch, rt, device: str = "cuda") -> list:
+    """The rest of the zoo at full width and one layer: ``loss_fn`` and its
+    gradients on one batch, twice (the first a warm-up), with the second's
+    forward and backward ms, the peak memory, and a finite loss and
+    gradient norm; no kernel launched."""
+    api, ops, T = rt["api"], rt["ops"], rt["transformer"]
+    tree_map, tree_leaves = rt["tree_map"], rt["tree_leaves"]
+    rows = []
+    for arch in ZOO:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = rt["configs"].get(arch).with_(num_layers=1)
+        impl = rt["resolve_family"](api.ModelSpec(arch=arch), cfg).impl
+        params = T.init_params(cfg, 0, device=device)
+        batch = zoo_batch(torch, cfg, device=device)
+        ops.reset_calls()
+        for _ in range(2):
+            p = tree_map(lambda x: x.detach().requires_grad_(True), params)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.enable_grad():
+                loss, metrics = T.loss_fn(cfg, p, batch, impl=impl)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                grads = torch.autograd.grad(loss, tree_leaves(p))
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            del p
+        gnorm = float(torch.sqrt(sum(torch.sum(g.float() ** 2)
+                                     for g in grads)))
+        row = {"path": "zoo", "arch": cfg.name, "family": cfg.family,
+               "impl": impl, "layers": 1, "d_model": cfg.d_model,
+               "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+               "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+               "experts": cfg.num_experts, "vocab": cfg.vocab_size,
+               "input_mode": cfg.input_mode, "mrope": cfg.mrope,
+               "params": sum(t.numel() for t in tree_leaves(params)),
+               "batch": [ZOO_BATCH, ZOO_SEQ], "loss": float(loss.detach()),
+               "metrics": {k: float(v.detach()) for k, v in metrics.items()},
+               "grad_norm": gnorm, "forward_ms": (t1 - t0) * 1e3,
+               "backward_ms": (t2 - t1) * 1e3,
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "launches": dict(ops.CALLS)}
+        emit(row)
+        if not (math.isfinite(row["loss"]) and math.isfinite(gnorm)):
+            fail_later(f"zoo {cfg.name}: loss {row['loss']}, gradient "
+                       f"norm {gnorm}")
+        if any(row["launches"].values()):
+            fail_later(f"zoo {cfg.name}: kernels launched "
+                       f"{row['launches']}")
+        rows.append(row)
+        del params, batch, loss, metrics, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def preset_result(preset, families, sess, calls: dict) -> dict:
+    """A finished preset run's evidence, as the reference's sweep
+    computes it from the trace (``repro/workloads/sweep.py``):
+    ``builds``, ``trained_ge_2_stages``, ``le_one_transfer_per_stage``,
+    ``loss_finite`` and, for a family that declares kernels, whether each
+    launched (``calls``: the kernels' counts over the run)."""
+    tr = sess.trace
+    stages = int(tr.meta.get("stages", 0))
+    transfers = int(tr.meta.get("host_transfers", 0))
+    final = None
+    for p in reversed(tr.points):
+        for v in (p.f_full, p.f_window):
+            if v is not None:
+                final = float(v)
+                break
+        if final is not None:
+            break
+    claims = {"builds": True, "trained_ge_2_stages": stages >= 2,
+              "le_one_transfer_per_stage": transfers <= stages,
+              "loss_finite": final is not None and math.isfinite(final)}
+    fam = families[preset.family]
+    if fam.kernels:
+        claims["kernel_routed"] = all(calls.get(k, 0) > 0
+                                      for k in fam.kernels)
+    return {"claims": claims, "stages": stages, "transfers": transfers,
+            "final_loss": final}
+
+
+def presets_phase(torch, rt, device: str = "cuda") -> list:
+    """BENCH_workloads.json's presets without serve or obs through
+    ``api.run(name)``, each with the reference sweep's claims, which must
+    all hold; the two others must be refused, naming their slice."""
+    api, ops, wl = rt["api"], rt["ops"], rt["workloads"]
+    rows = []
+    for name in BENCH_PRESETS:
+        preset = wl.get_workload(name)
+        gc.collect()
+        ops.reset_calls()
+        t0 = time.perf_counter()
+        sess = api.run(name, device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        row = {"path": "preset", "name": name, "arch": preset.arch,
+               "family": preset.family, "scenario": preset.scenario,
+               **preset_result(preset, wl.FAMILIES, sess, dict(ops.CALLS)),
+               "kernel_calls": dict(ops.CALLS),
+               "wall_s": time.perf_counter() - t0}
+        emit(row)
+        if not all(row["claims"].values()):
+            fail_later(f"preset {name}: claims {row['claims']}")
+        rows.append(row)
+        del sess
+    for name in REFUSED_PRESETS:
+        try:
+            api.run(name, device=device)
+        except api.SpecError as e:
+            refusal = str(e)
+        else:
+            refusal = None
+        emit({"path": "preset", "name": name, "refused": refusal})
+        if refusal is None or "A11" not in refusal:
+            fail_later(f"preset {name}: not refused for slice A11 "
+                       f"({refusal})")
+    return rows
+
+
 # SASS opcodes that show which units a kernel runs on: HGMMA (wgmma),
 # UTMALDG (TMA loads), SYNCS (mbarrier waits), HMMA and LDSM (mma.sync
 # and ldmatrix), MUFU.EX2 (the SFU's exp2)
@@ -2257,7 +2515,7 @@ def main() -> None:
                          "(torch.cuda.is_available() is False)")
     root = Path(__file__).resolve().parent
     sys.path.insert(0, str(root / "src"))
-    from repro_torch import api
+    from repro_torch import api, configs, workloads
     from repro_torch.data import synthetic
     from repro_torch.data.device_window import window_rows
     from repro_torch.kernels import build, linear_grad, ops, ref
@@ -2271,7 +2529,9 @@ def main() -> None:
     rt = dict(api=api, synthetic=synthetic, linear_grad=linear_grad,
               ops=ops, ref=ref, linear=linear, transformer=transformer,
               adam=adam, tree_map=tree_map, tree_leaves=tree_leaves,
-              methods=methods, window_rows=window_rows, build_dir=build_dir)
+              methods=methods, window_rows=window_rows, build_dir=build_dir,
+              configs=configs, workloads=workloads,
+              resolve_family=workloads.resolve_family)
 
     # 1. environment
     smi = subprocess.run(
@@ -2316,10 +2576,19 @@ def main() -> None:
     dist_mamba = dist_lm_phase(torch, rt, "falcon-mamba-7b")
     dist_hybrid = dist_lm_phase(torch, rt, "recurrentgemma-9b")
     process_phase(torch, rt)
+    # the transformer and moe families, the zoo and the workload presets
+    tf_launches = {}
+    for arch, policy in TF_RUNS:
+        run = transformer_main_path_phase(torch, rt, arch, policy)
+        for k, v in run["launches"].items():
+            tf_launches[k] = tf_launches.get(k, 0) + v
+    zoo_phase(torch, rt)
+    presets_phase(torch, rt)
     # 4. card against CPU
     card_vs_cpu_phase(torch, rt)
-    lm_card_vs_cpu_phase(torch, rt, "falcon-mamba-7b")
-    lm_card_vs_cpu_phase(torch, rt, "recurrentgemma-9b")
+    for arch in ("falcon-mamba-7b", "recurrentgemma-9b") + tuple(
+            a for a, _ in TF_RUNS):
+        lm_card_vs_cpu_phase(torch, rt, arch)
     if FAILED:
         raise SystemExit(f"chip_smoke: {len(FAILED)} checks failed: "
                          f"{FAILED}")
@@ -2332,6 +2601,7 @@ def main() -> None:
         "launches_convex_plane": plane_launches,
         "launches_convex_methods": method_launches,
         "launches_dist": dist_launches,
+        "launches_transformer_moe": tf_launches.get("linear_value_grad", 0),
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -2343,6 +2613,7 @@ def main() -> None:
         "replaces": "src/repro/kernels/ssm_scan.py:45",
         "launches": lm["launches"]["ssm_scan"],
         "launches_dist": dist_mamba["launches"]["ssm_scan"],
+        "launches_transformer_moe": tf_launches.get("ssm_scan", 0),
         "max_abs_err": scan_row["max_abs_err"],
         "ms": scan_row["kernel_ms"], "plain_ms": scan_row["plain_ms"],
         "bound_ms": scan_row["bound_ms"], "bound_by": scan_row["bound_by"],
@@ -2358,6 +2629,7 @@ def main() -> None:
         "replaces": "src/repro/kernels/rglru_scan.py:38",
         "launches": hybrid["launches"]["rglru_scan"],
         "launches_dist": dist_hybrid["launches"]["rglru_scan"],
+        "launches_transformer_moe": tf_launches.get("rglru_scan", 0),
         "max_abs_err": rglru_row["max_abs_err"],
         "ms": rglru_row["kernel_ms"], "plain_ms": rglru_row["plain_ms"],
         "bound_ms": rglru_row["bound_ms"],
@@ -2372,6 +2644,7 @@ def main() -> None:
         "replaces": "src/repro/kernels/flash_attention.py:77",
         "launches": hybrid["launches"]["flash_attention"],
         "launches_dist": dist_hybrid["launches"]["flash_attention"],
+        "launches_transformer_moe": tf_launches.get("flash_attention", 0),
         "max_abs_err": attn_row["max_abs_err"],
         "ms": attn_row["kernel_ms"], "plain_ms": attn_row["plain_ms"],
         "bound_ms": attn_row["bound_ms"], "bound_by": attn_row["bound_by"],

@@ -1,5 +1,5 @@
-"""Named registries — every ported policy, optimizer and shard store is
-addressable from a spec by name.
+"""Named registries — every ported policy, optimizer, shard store,
+topology and workload preset is addressable from a spec by name.
 
 A name the reference registers but this port does not carry yet raises a
 :class:`SpecError` that says so and names the slice that brings it,
@@ -29,6 +29,10 @@ class Registry:
         self.kind = kind
         self._entries: dict[str, Any] = dict(entries or {})
         self.pending: dict[str, str] = dict(pending or {})
+
+    def register(self, name: str, factory: Any) -> Any:
+        self._entries[name] = factory
+        return factory
 
     def names(self) -> list[str]:
         return sorted(self._entries)
@@ -86,6 +90,16 @@ TOPOLOGIES = Registry("topology", {
     "simulated": SimulatedTopology,
     "process": ProcessTopology,
 })
+
+# ---------------------------------------------------------------- workloads
+# name -> WorkloadPreset (its ``spec()`` composes the RunSpec).  Populated
+# by repro_torch.workloads.presets on import; ``session.run`` and the CLI
+# pull from here.
+WORKLOADS = Registry("workload")
+
+
+def register_workload(name: str, preset) -> Any:
+    return WORKLOADS.register(name, preset)
 
 
 # ----------------------------------------------------------------- builders

@@ -3,8 +3,8 @@ stack the spec describes.
 
 The port carries two branches on one device: the convex one, the paper's
 own loop (a synthetic ``PAPER_LIKE`` problem, the Eq. 1 objective, a
-ported inner optimizer and policy), and the LM one for the model families
-ported so far (``workloads/families.py``).  Either serves its data
+ported inner optimizer and policy), and the LM one for every model family
+of the reference (``workloads/families.py``).  Either serves its data
 through the host-slice path (``DataSpec(plane="host")``) or the streaming
 data plane (``plane="plane"``: shard stores, a prefetcher and a
 device-resident window, ``data/plane.py``), and either writes stage
@@ -18,10 +18,10 @@ and multi-host LM runs always run it, as in the reference.  ``build``
 validates the spec eagerly: unknown names and invalid combinations fail
 with a :class:`SpecError` as in the reference, and every branch a later
 slice brings (tiering, observability, serving, one ``torch.distributed``
-process per host, the other model families) fails with a
-:class:`SpecError` that names it.
+process per host) fails with a :class:`SpecError` that names it.
+``run(workload)`` builds and runs a workload preset by name.
 
-``device`` is a keyword of ``build``, ``resume_session`` and
+``device`` is a keyword of ``build``, ``run``, ``resume_session`` and
 ``convex_problem``, not a spec field, so the ``RunSpec`` JSON schema
 stays the reference's.  It defaults to ``"cuda"``; with no card, the call
 raises rather than run on the CPU.
@@ -49,7 +49,6 @@ from ..elastic import ElasticBetEngine, ElasticDataset, FaultPlan
 from ..elastic.checkpoint import StageCheckpointer, peek_stage_meta
 from ..models.common import ModelConfig
 from ..models.linear import LOSSES, init_params, make_objective
-from ..workloads.families import resolve_family
 from .lm import TokenWindows
 from .registry import (LM_OPTIMIZER, OPTIMIZERS, STORES, TOPOLOGIES,
                        build_optimizer, build_policy, make_store)
@@ -210,6 +209,8 @@ def _validate(spec: RunSpec) -> None:
                             f"'batch_size', not {sorted(bad)}")
         # family adapter resolution is itself an eager check: an explicit
         # family that contradicts the arch fails here, not in the train step
+        # imported here: the family adapters import this package
+        from ..workloads.families import resolve_family
         resolve_family(spec.model, lm_config(spec.model))
     elif spec.optimizer.name == LM_OPTIMIZER:
         raise SpecError(f"{LM_OPTIMIZER!r} is the LM train step; a convex "
@@ -237,8 +238,6 @@ def lm_config(model: ModelSpec) -> ModelConfig:
     stays JSON)."""
     try:
         cfg = configs.get(model.arch)
-    except configs.NotPortedError as e:
-        raise SpecError(str(e)) from None
     except KeyError:
         raise SpecError(f"unknown arch {model.arch!r}; available: "
                         f"{sorted(configs.ALIASES)}") from None
@@ -375,6 +374,7 @@ def _build_lm(spec: RunSpec, policy, device: torch.device) -> "Session":
     data = spec.data
     hosts, n0 = spec.topology.hosts, spec.schedule.n0
     cfg = lm_config(spec.model)
+    from ..workloads.families import resolve_family
     family = resolve_family(spec.model, cfg)
     corpus = synth_corpus(data.corpus_size, data.seq_len + 1,
                           max(2, cfg.vocab_size), seed=data.seed)
@@ -477,6 +477,26 @@ def resume_session(directory, *, device="cuda") -> "Session":
     spec = spec.replace(checkpoint=spec.checkpoint.replace(
         directory=str(d), resume=True))
     return build(spec, device=device)
+
+
+# ------------------------------------------------------------------ workloads
+def run(workload: "str | RunSpec", *, device="cuda",
+        progress: Callable | None = None, probe: Callable | None = None
+        ) -> "Session":
+    """One string, one run: ``repro_torch.api.run("falcon-mamba@stream")``.
+
+    ``workload`` is a preset name from the ``WORKLOADS`` registry (or any
+    ``arch@scenario`` string the workload grammar parses — see
+    ``repro_torch.workloads``), or an explicit :class:`RunSpec`.  It is
+    built on ``device``, run, and the session returned with its ``trace``
+    populated.  A serve-enabled or observed spec is refused by ``build``
+    (those come with ROADMAP queue A11)."""
+    if isinstance(workload, str):
+        from ..workloads import get_workload
+        workload = get_workload(workload).spec()
+    session = build(workload, device=device)
+    session.run(progress=progress, probe=probe)
+    return session
 
 
 # -------------------------------------------------------------------- session

@@ -30,7 +30,8 @@ def make_train_step(cfg: ModelConfig, *, lr: float = 3e-4,
         params, opt_state = adamw_update(params, grads, opt_state, lr=lr,
                                          weight_decay=weight_decay)
         gnorm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in flat))
-        metrics = dict(metrics, loss=loss.detach(), grad_norm=gnorm)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics.update(loss=loss.detach(), grad_norm=gnorm)
         return params, opt_state, metrics
 
     return train_step

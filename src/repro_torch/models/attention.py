@@ -1,9 +1,8 @@
 """GQA attention for training — the port of ``repro.models.attention``:
 the chunked causal path (``impl="xla"``, O(chunk·S) scores, no S×S
 matrix) and the flash kernel (``impl="pallas"``: the hand-written Hopper
-kernel on the card, its plain version on the CPU).  qk-norm and M-RoPE
-come with the transformer and vlm slices, decoding with the serving
-slice.
+kernel on the card, its plain version on the CPU), with qk-norm and
+M-RoPE in ``qkv_project``.  Decoding comes with the serving slice.
 """
 from __future__ import annotations
 
@@ -11,20 +10,26 @@ import torch
 
 from ..kernels import ops
 from .common import ModelConfig
-from .layers import apply_rope, causal_mask_bias
+from .layers import apply_mrope, apply_rope, causal_mask_bias, rms_norm
 
 
 def qkv_project(cfg: ModelConfig, p, x, positions):
-    """x: (B,S,d) -> q (B,S,H,hd), k,v (B,S,KV,hd), with RoPE applied."""
+    """x: (B,S,d) -> q (B,S,H,hd), k,v (B,S,KV,hd): q and k RMS-normed
+    over the head dim under qk-norm, then rotated (RoPE, or M-RoPE with
+    (3, B, S) positions)."""
     B, S, _ = x.shape
     q = (x @ p["wq"]).reshape(B, S, cfg.num_heads, cfg.head_dim)
     k = (x @ p["wk"]).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
     v = (x @ p["wv"]).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    if cfg.qk_norm or cfg.mrope:
-        raise NotImplementedError("qk-norm and M-RoPE come with the "
-                                  "transformer and vlm slices")
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if cfg.mrope:
+        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    else:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     if cfg.expand_kv and cfg.num_kv_heads < cfg.num_heads:
         rep = cfg.num_heads // cfg.num_kv_heads
         k = torch.repeat_interleave(k, rep, dim=2)

@@ -1,6 +1,5 @@
 """Shared building blocks — the port of ``repro.models.layers``: norms,
-the SwiGLU FFN, RoPE, the causal mask, initializers.  M-RoPE comes with
-the vlm slice."""
+the SwiGLU FFN, RoPE and M-RoPE, the causal mask, initializers."""
 from __future__ import annotations
 
 import torch
@@ -43,6 +42,28 @@ def apply_rope(x, positions, theta: float):
     freqs = rope_freqs(x.shape[-1], theta, device=x.device)   # (hd/2,)
     ang = positions[..., None].float() * freqs                # (..., S, hd/2)
     ang = ang[..., None, :]                                   # (..., S, 1, hd/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x, positions3, theta: float, sections):
+    """Qwen2-VL M-RoPE [arXiv:2409.12191]: the rotary half-dims are split
+    into (temporal, height, width) sections, each rotated by its own
+    position stream.  x: (B, S, H, hd); positions3: (3, B, S) integers;
+    ``sections`` sums to hd // 2."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} must sum to "
+                         f"half the head dim, {half}")
+    freqs = rope_freqs(x.shape[-1], theta, device=x.device)    # (half,)
+    # the position stream of each frequency: section i's ids repeated
+    sec_id = torch.repeat_interleave(
+        torch.arange(len(sections), device=x.device),
+        torch.tensor(sections, device=x.device))               # (half,)
+    pos = positions3[sec_id].movedim(0, -1).float()            # (B, S, half)
+    ang = (pos * freqs)[..., None, :]                          # (B, S, 1, half)
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)

@@ -1,22 +1,26 @@
-"""Model assembly — the port of ``repro.models.transformer``, for the
-layer families ported so far: ``ssm`` (falcon-mamba) and the hybrid
-(``rec`` and ``attn``, recurrentgemma).
+"""Model assembly — the port of ``repro.models.transformer``, for every
+layer family of the reference: ``attn_mlp`` (dense, vlm and audio),
+``moe``, ``ssm`` (falcon-mamba) and the hybrid (``rec`` and ``attn``,
+recurrentgemma).
 
-Parameters keep the reference's layout: a dict with ``embed``,
-``lm_head``, ``final_norm`` and one ``stack_<type>`` dict per layer type
-whose tensors carry a leading layer axis, so a reference parameter tree
-carries across one to one (``convert.params_from_jax``).  The reference
-scans each stack with ``lax.scan``; here a Python loop runs over the
-layer axis; a hybrid runs super-blocks of its pattern (rec, rec, attn),
-then the layers of an incomplete last super-block.  As the reference does
-with ``jax.checkpoint``, the backward pass rematerializes: with ``remat``
-(the default) each layer body of a homogeneous stack and each hybrid
-super-block keep only their input for the backward and run again inside
-it, and so does each cross-entropy chunk, always.  Recomputation repeats
-the same operations on the same inputs, so it changes memory and time,
-and the loss and gradients only where an operation does not repeat its
-bits; the kernels inside a rematerialized region (the scans, the
-attention) launch once more per train step.
+Parameters keep the reference's layout: a dict with ``embed`` (token
+inputs only), ``lm_head``, ``final_norm`` and one ``stack_<type>`` dict
+per layer type whose tensors carry a leading layer axis, so a reference
+parameter tree carries across one to one (``convert.params_from_jax``).
+The reference scans each stack with ``lax.scan``; here a Python loop
+runs over the layer axis; a hybrid runs super-blocks of its pattern
+(rec, rec, attn), then the layers of an incomplete last super-block.
+Each layer body returns its output and an aux dict (a moe layer's
+load-balance and router z-losses), summed over the layers.  As the
+reference does with ``jax.checkpoint``, the backward pass
+rematerializes: with ``remat`` (the default) each layer body of a
+homogeneous stack and each hybrid super-block keep only their input for
+the backward and run again inside it, and so does each cross-entropy
+chunk, always.  Recomputation repeats the same operations on the same
+inputs, so it changes memory and time, and the loss and gradients only
+where an operation does not repeat its bits; the kernels inside a
+rematerialized region (the scans, the attention) launch once more per
+train step.
 
 Vocabulary sizes are padded to multiples of 256 (``vocab_padded``);
 labels never reference pad ids.
@@ -30,6 +34,7 @@ from .attention import attention_block
 from .common import ModelConfig
 from .layers import dense_init, rms_norm, swiglu
 from .mamba import mamba_block
+from .moe import moe_block
 from .rglru import recurrent_block
 
 
@@ -37,35 +42,63 @@ def vocab_padded(cfg: ModelConfig) -> int:
     return ((cfg.vocab_size + 255) // 256) * 256
 
 
-def _not_ported(t: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"layer type {t!r} is not yet ported to repro_torch (the port "
-        f"carries 'ssm', 'rec' and 'attn'; ROADMAP queue A brings the "
-        f"others)")
-
-
 # ===================================================================== init
-def _init_attn(cfg: ModelConfig, gen: torch.Generator, n: int, device):
-    """The hybrid's local-attention layer: attention and a SwiGLU MLP."""
+def _init_attn(cfg: ModelConfig, gen: torch.Generator, n: int, device, *,
+               extra_mlp: bool = True):
+    """An attention layer (qk-norm scales when the config has them) and,
+    with ``extra_mlp``, its SwiGLU MLP."""
     d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
 
     def dense(shape, in_axis):
         return dense_init(gen, shape, in_axis, cfg.dtype, device)
 
-    def norm():
-        return torch.zeros((n, d), dtype=torch.float32, device=device)
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=device)
 
-    return {
-        "norm1": norm(),
+    p = {
+        "norm1": zeros(n, d),
         "wq": dense((n, d, qd), 1),
         "wk": dense((n, d, kvd), 1),
         "wv": dense((n, d, kvd), 1),
         "wo": dense((n, qd, d), 1),
-        "norm2": norm(),
-        "w_gate": dense((n, d, cfg.d_ff), 1),
-        "w_up": dense((n, d, cfg.d_ff), 1),
-        "w_down": dense((n, cfg.d_ff, d), 1),
     }
+    if cfg.qk_norm:
+        p["q_norm"] = zeros(n, cfg.head_dim)
+        p["k_norm"] = zeros(n, cfg.head_dim)
+    if extra_mlp:
+        p.update({
+            "norm2": zeros(n, d),
+            "w_gate": dense((n, d, cfg.d_ff), 1),
+            "w_up": dense((n, d, cfg.d_ff), 1),
+            "w_down": dense((n, cfg.d_ff, d), 1),
+        })
+    return p
+
+
+def _init_moe(cfg: ModelConfig, gen: torch.Generator, n: int, device):
+    """An attention layer and its experts: a float32 router (n, d, E),
+    experts (n, E, d, f) and (n, E, f, d), and with ``shared_expert`` a
+    SwiGLU FFN beside them."""
+    d, f, E = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
+
+    def dense(shape, in_axis, dtype=cfg.dtype):
+        return dense_init(gen, shape, in_axis, dtype, device)
+
+    p = _init_attn(cfg, gen, n, device, extra_mlp=False)
+    p.update({
+        "norm2": torch.zeros((n, d), dtype=torch.float32, device=device),
+        "router": dense((n, d, E), 1, torch.float32),
+        "w_gate": dense((n, E, d, f), 2),
+        "w_up": dense((n, E, d, f), 2),
+        "w_down": dense((n, E, f, d), 2),
+    })
+    if cfg.shared_expert and cfg.d_ff:
+        p.update({
+            "shared_w_gate": dense((n, d, cfg.d_ff), 1),
+            "shared_w_up": dense((n, d, cfg.d_ff), 1),
+            "shared_w_down": dense((n, cfg.d_ff, d), 1),
+        })
+    return p
 
 
 def _init_rec(cfg: ModelConfig, gen: torch.Generator, n: int, device):
@@ -119,7 +152,8 @@ def _init_ssm(cfg: ModelConfig, gen: torch.Generator, n: int, device):
     }
 
 
-_STACK_INIT = {"ssm": _init_ssm, "rec": _init_rec, "attn": _init_attn}
+_STACK_INIT = {"attn_mlp": _init_attn, "attn": _init_attn, "moe": _init_moe,
+               "ssm": _init_ssm, "rec": _init_rec}
 
 
 def stack_counts(cfg: ModelConfig) -> dict:
@@ -141,27 +175,35 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
         params["embed"] = dense_init(gen, (Vp, d), 1, cfg.dtype, device)
     params["lm_head"] = dense_init(gen, (d, Vp), 0, cfg.dtype, device)
     for t, n in sorted(stack_counts(cfg).items()):
-        if t not in _STACK_INIT:
-            raise _not_ported(t)
         params[f"stack_{t}"] = _STACK_INIT[t](cfg, gen, n, device)
     return params
 
 
 # =================================================================== forward
 def _layer_body(cfg: ModelConfig, t: str, p, x, positions, impl: str):
-    """One layer of type ``t``: pre-norm residual block(s)."""
+    """One layer of type ``t``: pre-norm residual block(s) -> (x, aux)."""
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if t == "ssm":
-        return x + mamba_block(cfg, p, h, impl=impl)
-    if t == "attn":
+        return x + mamba_block(cfg, p, h, impl=impl), {}
+    if t in ("attn_mlp", "attn", "moe"):
+        window = cfg.local_window if t == "attn" else cfg.sliding_window
         x = x + attention_block(cfg, p, h, positions, impl=impl,
-                                window=cfg.local_window)
+                                window=window)
     elif t == "rec":
         x = x + recurrent_block(cfg, p, h, impl=impl)
     else:
-        raise _not_ported(t)
+        raise ValueError(t)
     h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + swiglu(h2, p["w_gate"], p["w_up"], p["w_down"])
+    if t == "moe":
+        y, aux = moe_block(cfg, p, h2)
+        return x + y, aux
+    return x + swiglu(h2, p["w_gate"], p["w_up"], p["w_down"]), {}
+
+
+def _sum_aux(auxs: list) -> dict:
+    """Per-layer aux dicts -> each term summed over the layers."""
+    return {k: torch.stack([a[k] for a in auxs]).sum() for k in auxs[0]} \
+        if auxs and auxs[0] else {}
 
 
 # The contexts a rematerialized region runs in, the forward pass's and the
@@ -188,10 +230,11 @@ def _layer(params, t: str, i: int) -> dict:
 
 def hidden_forward(cfg: ModelConfig, params, inputs, positions, *,
                    impl: str = "xla", remat: bool = True):
-    """inputs: (B,S,d) embeddings -> the final-normed hidden states.  With
-    ``remat``, each layer of a homogeneous stack and each hybrid
-    super-block is rematerialized in the backward pass (the tail layers of
-    an incomplete super-block are not, as in the reference)."""
+    """inputs: (B,S,d) embeddings -> (the final-normed hidden states, the
+    aux terms summed over the layers).  With ``remat``, each layer of a
+    homogeneous stack and each hybrid super-block is rematerialized in
+    the backward pass (the tail layers of an incomplete super-block are
+    not, and their aux terms are not summed, as in the reference)."""
     x = inputs
     types = cfg.layer_types()
     if cfg.family == "hybrid":
@@ -200,40 +243,53 @@ def hidden_forward(cfg: ModelConfig, params, inputs, positions, *,
         per_block = {t: pat.count(t) for t in set(pat)}
 
         def super_body(x, idx):
+            aux_acc = {}
             for j, t in enumerate(pat):
                 i = idx * per_block[t] + pat[:j].count(t)
-                x = _layer_body(cfg, t, _layer(params, t, i), x, positions,
-                                impl)
-            return x
+                x, aux = _layer_body(cfg, t, _layer(params, t, i), x,
+                                     positions, impl)
+                for k, v in aux.items():
+                    aux_acc[k] = aux_acc.get(k, 0.0) + v
+            return x, aux_acc
 
+        blocks = []
         for idx in range(n_super):
-            x = _remat(super_body, x, idx) if remat else super_body(x, idx)
+            x, aux = _remat(super_body, x, idx) if remat \
+                else super_body(x, idx)
+            blocks.append(aux)
+        aux_total = _sum_aux(blocks)
         # tail: the layers of an incomplete last super-block
         used = {t: n_super * per_block[t] for t in per_block}
         for t in pat[:len(types) - n_super * len(pat)]:
-            x = _layer_body(cfg, t, _layer(params, t, used[t]), x,
-                            positions, impl)
+            x, _ = _layer_body(cfg, t, _layer(params, t, used[t]), x,
+                               positions, impl)
             used[t] += 1
     else:                               # one stack, layer i at slot i
+        auxs = []
         for i, t in enumerate(types):
-            if remat:
-                x = _remat(_layer_body, cfg, t, _layer(params, t, i), x,
-                           positions, impl)
-            else:
-                x = _layer_body(cfg, t, _layer(params, t, i), x, positions,
-                                impl)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+            args = (cfg, t, _layer(params, t, i), x, positions, impl)
+            x, aux = _remat(_layer_body, *args) if remat \
+                else _layer_body(*args)
+            auxs.append(aux)
+        aux_total = _sum_aux(auxs)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps), aux_total
 
 
 def embed_inputs(cfg: ModelConfig, params, batch):
-    """Token embeddings (B,S,d) and their positions (B,S)."""
-    if cfg.input_mode != "tokens":
-        raise NotImplementedError("embedding inputs come with the vlm/audio "
-                                  "families (ROADMAP queue A)")
-    tokens = batch["tokens"].long()
-    B, S = tokens.shape
-    positions = torch.arange(S, device=tokens.device).expand(B, S)
-    return params["embed"][tokens], positions
+    """The inputs (B,S,d), token embeddings or the batch's ``embeds``
+    (``input_mode="embeddings"``), and their positions: (B,S), or the
+    batch's (3,B,S) ``positions`` under M-RoPE."""
+    if cfg.input_mode == "tokens":
+        tokens = batch["tokens"].long()
+        x = params["embed"][tokens]
+    else:
+        x = batch["embeds"].to(cfg.dtype)
+    B, S = x.shape[:2]
+    if cfg.mrope:
+        positions = batch["positions"]
+    else:
+        positions = torch.arange(S, device=x.device).expand(B, S)
+    return x, positions
 
 
 def _chunk_loss(hc, lm_head, yc):
@@ -262,10 +318,19 @@ def lm_loss(cfg: ModelConfig, h, lm_head, labels, *, chunk: int = 512):
 
 
 def loss_fn(cfg: ModelConfig, params, batch, *, impl: str = "xla",
-            remat: bool = True):
-    """(loss, metrics) for a batch {"tokens", "labels"} of (B, S) ids;
-    ``remat`` rematerializes the layers in the backward pass."""
+            remat: bool = True, aux_coef: float = 0.01):
+    """(loss, metrics) for a batch {"tokens" or "embeds", "labels"} of
+    (B, S) ids (and (3, B, S) "positions" under M-RoPE); ``remat``
+    rematerializes the layers in the backward pass.  A moe stack adds
+    ``aux_coef``·load_balance + 0.001·router_z to the cross-entropy, and
+    its aux terms to the metrics."""
     x, positions = embed_inputs(cfg, params, batch)
-    h = hidden_forward(cfg, params, x, positions, impl=impl, remat=remat)
+    h, aux = hidden_forward(cfg, params, x, positions, impl=impl,
+                            remat=remat)
     loss = lm_loss(cfg, h, params["lm_head"], batch["labels"])
-    return loss, {"ce_loss": loss}
+    metrics = {"ce_loss": loss}
+    if "load_balance" in aux:
+        loss = loss + aux_coef * aux["load_balance"] \
+            + 0.001 * aux.get("router_z", 0.0)
+        metrics.update(aux)
+    return loss, metrics

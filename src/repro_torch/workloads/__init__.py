@@ -1,0 +1,15 @@
+# The workloads subsystem, the port of repro.workloads: one string names a
+# full run over the model zoo.  Family adapters generalize the LM path to
+# every family (the scan kernels carry the mamba and rglru traffic), and
+# the preset grammar composes scenarios (stages/hosts/elastic/stream/
+# serve/obs) into RunSpecs.  The sweep comes with the obs plane
+# (ROADMAP queue A11).
+from .families import FAMILIES, LMFamily, family_of_config, resolve_family
+from .presets import (PRESETS, SHORT, WorkloadPreset, describe,
+                      get_workload, parse, workload_spec)
+
+__all__ = [
+    "FAMILIES", "LMFamily", "family_of_config", "resolve_family",
+    "PRESETS", "SHORT", "WorkloadPreset", "describe", "get_workload",
+    "parse", "workload_spec",
+]

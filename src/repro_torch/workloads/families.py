@@ -2,13 +2,16 @@
 
 A family is the trio of factories the session builder needs for an LM
 run — ``build_params`` / ``step`` / ``objective`` — and the layer ``impl``
-that carries its training traffic.  This port carries ``mamba``, whose
-``impl="pallas"`` routes the selective scan through the hand-written
-Hopper kernel (``kernels/ops.py::ssm_scan``), and ``rglru``, whose
-``impl="pallas"`` routes the RG-LRU recurrence and the local attention
-through theirs (``rglru_scan``, ``flash_attention``); the reference's
-other families raise a ``SpecError`` that names the slice that brings
-them.
+that carries its training traffic, the reference's four:
+
+- ``transformer`` — dense, vlm and audio attention stacks, and ``moe`` —
+  mixture-of-experts stacks: ``impl="xla"``, plain PyTorch layers (the
+  chunked einsum attention, the grouped einsum experts), no kernel, as
+  in the reference;
+- ``mamba`` — ``impl="pallas"`` routes the selective scan through the
+  hand-written Hopper kernel (``kernels/ops.py::ssm_scan``);
+- ``rglru`` — ``impl="pallas"`` routes the RG-LRU recurrence and the
+  local attention through theirs (``rglru_scan``, ``flash_attention``).
 """
 from __future__ import annotations
 
@@ -47,36 +50,18 @@ class LMFamily:
 
 
 FAMILIES: dict[str, LMFamily] = {
+    "transformer": LMFamily("transformer",
+                            config_families=("dense", "vlm", "audio")),
     "mamba": LMFamily("mamba", config_families=("ssm",), impl="pallas",
                       kernels=("ssm_scan",)),
     "rglru": LMFamily("rglru", config_families=("hybrid",), impl="pallas",
                       kernels=("rglru_scan", "flash_attention")),
-}
-
-# the reference's other adapters: name -> (config families, the slice)
-PENDING: dict[str, tuple] = {
-    "transformer": (("dense", "vlm", "audio"),
-                    "the transformer slice (ROADMAP queue A)"),
-    "moe": (("moe",), "the moe slice (ROADMAP queue A)"),
+    "moe": LMFamily("moe", config_families=("moe",)),
 }
 
 # ModelConfig.family -> adapter name (the "auto" derivation)
 _AUTO = {cf: fam.name for fam in FAMILIES.values()
          for cf in fam.config_families}
-_AUTO.update({cf: name for name, (cfs, _) in PENDING.items() for cf in cfs})
-
-
-def _family(name: str) -> LMFamily:
-    if name in PENDING:
-        raise SpecError(f"model family {name!r} is not yet ported to "
-                        f"repro_torch; it comes with {PENDING[name][1]}")
-    return FAMILIES[name]
-
-
-def pending_slice(config_family: str) -> str:
-    """The slice that brings the adapter of a config family not yet
-    ported (the refusal ``configs.get`` gives such an architecture)."""
-    return next(sl for cfs, sl in PENDING.values() if config_family in cfs)
 
 
 def family_of_config(cfg: ModelConfig) -> str:
@@ -97,17 +82,16 @@ def resolve_family(model: ModelSpec, cfg: ModelConfig | None = None
     family, and mismatches fail here, eagerly."""
     cfg = configs.get(model.arch) if cfg is None else cfg
     if model.family == "auto":
-        return _family(family_of_config(cfg))
-    if model.family not in FAMILIES and model.family not in PENDING:
+        return FAMILIES[family_of_config(cfg)]
+    if model.family not in FAMILIES:
         raise SpecError(
             f"unknown model family {model.family!r}; available: "
-            f"{sorted(set(FAMILIES) | set(PENDING))} (or 'auto')")
-    accepted = (FAMILIES[model.family].config_families
-                if model.family in FAMILIES else PENDING[model.family][0])
-    if cfg.family not in accepted:
+            f"{sorted(FAMILIES)} (or 'auto')")
+    fam = FAMILIES[model.family]
+    if cfg.family not in fam.config_families:
         raise SpecError(
-            f"family {model.family!r} cannot adapt arch {model.arch!r} "
+            f"family {fam.name!r} cannot adapt arch {model.arch!r} "
             f"(config family {cfg.family!r}, accepted: "
-            f"{sorted(accepted)}); use family='auto' or "
+            f"{sorted(fam.config_families)}); use family='auto' or "
             f"{family_of_config(cfg)!r}")
-    return _family(model.family)
+    return fam

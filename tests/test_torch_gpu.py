@@ -1,6 +1,7 @@
 """Tests of the port that need a CUDA card: the hand-written kernels
 against their float64 plain versions, the scans' and the attention's
-autograd on the card, and the main paths on the card against the CPU.  They skip (deciding
+autograd on the card, the moe routing, and the main paths on the card
+against the CPU.  They skip (deciding
 inside each test) where there is no card.
 
 This file imports neither JAX nor the reference, so it runs on a machine
@@ -270,7 +271,8 @@ def test_ssm_scan_refuses_what_it_does_not_take():
                           .transpose(1, 2), *args[1:])
 
 
-@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-9b",
+                                  "qwen3-0.6b", "granite-moe-1b-a400m"])
 def test_lm_path_on_card_matches_cpu(arch):
     _need_card()
     spec = P.RunSpec(
@@ -306,6 +308,31 @@ def test_lm_path_on_card_matches_cpu(arch):
     # the bound chip_smoke.py states for the LM card-vs-CPU check
     np.testing.assert_allclose(gpu.column("f_full"), cpu.column("f_full"),
                                rtol=1e-4)
+
+
+@pytest.mark.parametrize("E,K", [(4, 2), (32, 8), (16, 1)])
+def test_moe_route_on_card_matches_cpu(E, K):
+    """``route`` at the reduced and the published routings on the card:
+    the dispatch masks equal the CPU's bit for bit, the combine weights
+    and the aux losses within 1e-6 (float32 softmax and logsumexp in
+    other orders)."""
+    _need_card()
+    from repro_torch import configs
+    from repro_torch.models import moe
+    cfg = configs.reduced(configs.get("granite-moe-1b-a400m")).with_(
+        num_experts=E, experts_per_token=K, dtype=torch.float32)
+    rng = np.random.default_rng(E)
+    x = torch.from_numpy(rng.standard_normal((2, 64, cfg.d_model))
+                         .astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((cfg.d_model, E))
+                          * cfg.d_model ** -0.5).astype(np.float32))
+    cc, cd, ca = moe.route(cfg, w, x)
+    gc_, gd, ga = moe.route(cfg, w.cuda(), x.cuda())
+    assert torch.equal(gd.cpu(), cd)
+    np.testing.assert_allclose(gc_.cpu().numpy(), cc.numpy(), rtol=0,
+                               atol=1e-6)
+    for k in ca:
+        np.testing.assert_allclose(ga[k].item(), ca[k].item(), rtol=1e-6)
 
 
 # -------------------------------------------------------- rglru scan (B4)

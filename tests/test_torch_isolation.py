@@ -36,6 +36,15 @@ DIST_MODULES = [
     "repro_torch.elastic.runtime", "repro_torch.elastic.checkpoint",
 ]
 
+# the transformer and moe families, the zoo and the workloads grammar
+TRANSFORMER_MODULES = [
+    "repro_torch.models.moe", "repro_torch.workloads",
+    "repro_torch.workloads.presets", "repro_torch.launch.train",
+] + [f"repro_torch.configs.{m}" for m in (
+    "qwen3_0p6b", "internlm2_1p8b", "yi_9b", "stablelm_12b",
+    "musicgen_medium", "qwen2_vl_2b", "granite_moe_1b_a400m",
+    "llama4_scout_17b_a16e")]
+
 
 def test_every_module_imports_with_jax_and_repro_blocked():
     code = (
@@ -59,6 +68,7 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     assert len(names) >= 50
     assert set(CONVEX_MODULES) <= set(names)
     assert set(DIST_MODULES) <= set(names)
+    assert set(TRANSFORMER_MODULES) <= set(names)
     assert out.stdout.count("\n") == 1         # no module printed a thing
 
 

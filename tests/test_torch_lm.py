@@ -314,8 +314,11 @@ def test_configs_registry():
     assert cfg.dtype == torch.bfloat16
     assert tconfigs.get("falcon_mamba_7b") is cfg
     assert TT.vocab_padded(cfg) == JT.vocab_padded(ref) == 65024
-    with pytest.raises(tconfigs.NotPortedError, match="moe slice"):
-        tconfigs.get("granite-moe-1b-a400m")
+    # the moe family is ported: its architectures resolve field for field
+    moe, moe_ref = (m.get("granite-moe-1b-a400m")
+                    for m in (tconfigs, jconfigs))
+    assert moe.family == "moe" and (moe.num_experts, moe.d_model) == \
+        (moe_ref.num_experts, moe_ref.d_model) == (32, 1024)
     assert tconfigs.get("recurrentgemma-9b").family == "hybrid"
     with pytest.raises(KeyError, match="unknown architecture"):
         tconfigs.get("gpt-5")
@@ -334,9 +337,10 @@ def test_family_resolution():
     with pytest.raises(P.SpecError, match="unknown model family"):
         tfam.resolve_family(P.ModelSpec(arch="falcon-mamba-7b",
                                         family="lstm"), cfg)
-    moe = cfg.with_(family="moe")
-    with pytest.raises(P.SpecError, match="not yet ported"):
-        tfam.resolve_family(P.ModelSpec(arch="falcon-mamba-7b"), moe)
+    # a moe config family now derives the ported moe adapter (impl "xla")
+    moe = tfam.resolve_family(P.ModelSpec(arch="falcon-mamba-7b"),
+                              cfg.with_(family="moe"))
+    assert (moe.name, moe.impl, moe.kernels) == ("moe", "xla", ())
 
 
 @pytest.mark.parametrize("change,needle", [
@@ -350,10 +354,18 @@ def test_family_resolution():
      "not a torch dtype"),
     (dict(model=R.ModelSpec(arch="falcon-mamba-7b",
                             overrides={"depth": 3})), "overrides"),
-    (dict(model=R.ModelSpec(arch="qwen3-0.6b")), "transformer slice"),
+    # once refused as not ported; the transformer family now builds it
+    (dict(model=R.ModelSpec(arch="qwen3-0.6b", reduced=True)), None),
 ], ids=["no_model", "optimizer", "opt_params", "arch", "dtype", "override",
         "pending_arch"])
 def test_lm_validation(change, needle):
-    spec = _lm_spec("fixed_steps", {}).replace(**change)
+    spec = P.RunSpec.from_json(
+        _lm_spec("fixed_steps", {}).replace(**change).to_json())
+    if needle is None:
+        sess = P.build(spec, device="cpu")
+        assert sess.model_config.name == spec.model.arch
+        assert tfam.resolve_family(spec.model).name == "transformer"
+        sess.close()
+        return
     with pytest.raises(P.SpecError, match=needle):
-        P.build(P.RunSpec.from_json(spec.to_json()), device="cpu")
+        P.build(spec, device="cpu")

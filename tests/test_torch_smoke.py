@@ -325,3 +325,83 @@ def test_dist_lm_phase_specs_validate():
                               num_examples=kw["corpus"]
                               ).min_full_participation_window()
         assert full <= spec.schedule.n0
+
+
+def test_presets_phase_holds_the_claims_on_the_cpu(monkeypatch):
+    """chip_smoke.py's preset phase on the CPU, with the kernel wrappers
+    counting their calls where the card's launches are counted: the
+    presets are BENCH_workloads.json's without serve or obs, each with
+    every claim of the reference sweep (the mamba and rglru presets
+    kernel-routed); the serve and obs presets refused naming A11."""
+    import json
+    from repro_torch import workloads
+    for name in ("ssm_scan", "rglru_scan", "flash_attention"):
+        def counted(*a, real=getattr(tops, name), name=name, **kw):
+            tops.CALLS[name] += 1
+            return real(*a, **kw)
+        monkeypatch.setattr(tops, name, counted)
+    monkeypatch.setattr(chip_smoke, "FAILED", [])
+    bench = json.loads((Path(chip_smoke.__file__).parent
+                        / "BENCH_workloads.json").read_text())
+    names = [p["name"] for p in bench["presets"]]
+    assert list(chip_smoke.BENCH_PRESETS) == [
+        n for n in names if "serve" not in n and "obs" not in n]
+    assert set(chip_smoke.REFUSED_PRESETS) == set(names) - set(
+        chip_smoke.BENCH_PRESETS)
+    rows = chip_smoke.presets_phase(
+        torch, {"api": P, "ops": tops, "workloads": workloads}, device="cpu")
+    assert chip_smoke.FAILED == []
+    assert [r["name"] for r in rows] == list(chip_smoke.BENCH_PRESETS)
+    routed = [r["name"] for r in rows if "kernel_routed" in r["claims"]]
+    assert routed == ["falcon-mamba@2stages", "falcon-mamba@stream",
+                      "recurrentgemma@2stages"]
+
+
+def test_transformer_phases_run_small_on_the_cpu(monkeypatch):
+    """chip_smoke.py's transformer and moe main paths (on the reduced
+    configs in float32, a few steps) and its zoo phase (reduced, 64
+    tokens) on the CPU, the card's memory counters stubbed: no kernel
+    called, remat on and off bitwise, one region recomputed per layer
+    and loss chunk, a moe stack's aux terms in the breakdown, every zoo
+    loss finite."""
+    from repro_torch import configs, workloads
+    from repro_torch.optim import adam
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    for name in ("max_memory_allocated", "max_memory_reserved"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: 0)
+    monkeypatch.setattr(chip_smoke, "FAILED", [])
+    real = chip_smoke.lm_spec
+
+    def small(api, **kw):
+        kw.update(reduced=True, corpus=64, seq_len=32, n0=16, batch=4,
+                  eval_rows=8, max_stage_iters=4, fixed=(2, 2))
+        return real(api, **kw)
+
+    monkeypatch.setattr(chip_smoke, "lm_spec", small)
+    monkeypatch.setattr(chip_smoke, "TF_BATCH", 4)
+    monkeypatch.setattr(chip_smoke, "ZOO_SEQ", 64)
+
+    class Reduced:
+        @staticmethod
+        def get(arch):
+            return configs.reduced(configs.get(arch)).with_(
+                dtype=torch.float32)
+
+    rt = {"api": _OnCPU(), "ops": tops, "transformer": TT, "adam": adam,
+          "tree_map": tree_map, "tree_leaves": tree_leaves,
+          "window_rows": window_rows, "configs": Reduced,
+          "workloads": workloads,
+          "resolve_family": workloads.resolve_family}
+    tops.reset_calls()
+    runs = [chip_smoke.transformer_main_path_phase(torch, rt, arch, policy)
+            for arch, policy in chip_smoke.TF_RUNS]
+    rows = chip_smoke.zoo_phase(torch, rt, device="cpu")
+    assert chip_smoke.FAILED == []
+    assert [r["path"] for r in runs] == ["transformer", "moe"]
+    assert all(r["launches"] == {} for r in runs)
+    moe = runs[1]["breakdown"]
+    assert {"load_balance", "router_z"} <= set(moe["metrics"])
+    assert moe["recompute_regions"] == 2 + 1     # 2 layers, 1 loss chunk
+    assert [r["arch"] for r in rows] == list(chip_smoke.ZOO)
+    assert rows[-1]["mrope"] and rows[-1]["input_mode"] == "embeddings"
