@@ -124,8 +124,33 @@ no kernel, as in the reference), each check failing the run at its end:
  3k. BENCH_workloads.json's nine presets without serve or obs through
     ``repro_torch.api.run(name, device="cuda")``, each with the reference
     sweep's claims (the mamba and rglru presets kernel-routed); the serve
-    and obs presets refused, naming their slice.
+    preset through ``api.run`` too (its closed loop, B4 and B2 launched by
+    its training); the obs preset refused, naming its slice.
  4 also holds the reduced qwen3-0.6b and granite-moe-1b-a400m to the CPU.
+
+Serving (``models/transformer.py``'s prefill and decode, ``repro_torch.
+serve``), each check failing the run at its end:
+ 3l. recurrentgemma-9b, one super-block at full width, 4 prompts of 2,560
+    tokens (past the 2,048 local window): prefill with impl="xla" and
+    "pallas" (B2 once a prefill, B4 never: the reference's prefill runs
+    the Griffin block's plain loop), logits within 0.03; one decode step
+    against a pallas prefill of 2,561 tokens within 0.03 (the reference
+    test's bound); 32 greedy decode steps on the wrapped ring.
+    qwen3-0.6b at full width and depth: ``launch/serve.generate``, 8 x 64
+    prompts, 64 tokens: decode ms a token, tokens/s, peak.  One
+    full-width layer each of falcon-mamba-7b and granite-moe-1b-a400m
+    (capacity factor 8): decode against prefill, float32 within 1e-4 and
+    bfloat16 within 0.03.
+ 3m. the closed loop (``serve.build_loop``) on falcon-mamba-7b at full
+    width and one layer: ticks, requests, stages, holds, the server's
+    swaps and tokens/s, the warm staleness, the meter, each stage's
+    checkpoint write; B3 launched 3 x steps (forward, rematerialization,
+    probe); BENCH_serve.json's claims that need no A/B and its resume
+    contract (the final params bitwise, the clock exact, the meters).
+ 3m'. BENCH_serve.json's A/B on its setting (qwen3-0.6b reduced): all
+    seven claims, throughput under swap >= 0.8 of no swap.
+ 4 also holds the reduced hybrid's prefill and decode logits, and a
+    reduced closed loop's counts and logged tokens, to the CPU.
 
 Then the ``{"kernels": [...]}`` line, and last ``{"ok": true, ...}``.
 """
@@ -2258,12 +2283,15 @@ ZOO = ("internlm2-1.8b", "yi-9b", "stablelm-12b", "musicgen-medium",
        "llama4-scout-17b-a16e", "qwen2-vl-2b")
 ZOO_BATCH, ZOO_SEQ = 1, 512
 # BENCH_workloads.json's presets that use neither serve nor obs, run
-# through repro_torch.api.run; the other two wait for their slice (A11)
+# through repro_torch.api.run; the serve preset through api.run too (its
+# closed loop, with the checkpoints in a temporary directory); the obs
+# preset waits for its slice (A11)
 BENCH_PRESETS = ("qwen3@2stages", "internlm2@2hosts", "stablelm@stream",
                  "falcon-mamba@2stages", "falcon-mamba@stream",
                  "recurrentgemma@2stages", "granite-moe@2stages",
                  "granite-moe@4hosts-elastic", "llama4-scout@2stages")
-REFUSED_PRESETS = ("recurrentgemma@serve", "yi@3stages-obs")
+SERVE_PRESETS = ("recurrentgemma@serve",)
+REFUSED_PRESETS = ("yi@3stages-obs",)
 
 
 def transformer_main_path_phase(torch, rt, arch: str, policy: str) -> dict:
@@ -2421,8 +2449,13 @@ def preset_result(preset, families, sess, calls: dict) -> dict:
     computes it from the trace (``repro/workloads/sweep.py``):
     ``builds``, ``trained_ge_2_stages``, ``le_one_transfer_per_stage``,
     ``loss_finite`` and, for a family that declares kernels, whether each
-    launched (``calls``: the kernels' counts over the run)."""
+    launched (``calls``: the kernels' counts over the run).  A serve
+    preset's ``sess`` is its finished loop: a held stage flushes once a
+    held chunk, so its transfer budget is stages + holds, and its
+    RunReport adds ``zero_resident_reupload``, as in the sweep."""
     tr = sess.trace
+    report = getattr(sess, "run_report", None)
+    holds = report.serve_summary()["holds"] if report is not None else 0
     stages = int(tr.meta.get("stages", 0))
     transfers = int(tr.meta.get("host_transfers", 0))
     final = None
@@ -2434,40 +2467,52 @@ def preset_result(preset, families, sess, calls: dict) -> dict:
         if final is not None:
             break
     claims = {"builds": True, "trained_ge_2_stages": stages >= 2,
-              "le_one_transfer_per_stage": transfers <= stages,
+              "le_one_transfer_per_stage": transfers <= stages + holds,
               "loss_finite": final is not None and math.isfinite(final)}
     fam = families[preset.family]
     if fam.kernels:
         claims["kernel_routed"] = all(calls.get(k, 0) > 0
                                       for k in fam.kernels)
+    if report is not None:
+        claims["zero_resident_reupload"] = \
+            report.claims()["zero_resident_reupload"]
     return {"claims": claims, "stages": stages, "transfers": transfers,
             "final_loss": final}
 
 
 def presets_phase(torch, rt, device: str = "cuda") -> list:
-    """BENCH_workloads.json's presets without serve or obs through
-    ``api.run(name)``, each with the reference sweep's claims, which must
-    all hold; the two others must be refused, naming their slice."""
+    """BENCH_workloads.json's presets through ``api.run``, each with the
+    reference sweep's claims, which must all hold: the nine without serve
+    or obs by name, the serve preset's spec with its checkpoint directory
+    moved to a temporary one (``api.run`` routes it to ``build_loop``);
+    the obs preset must be refused, naming its slice."""
     api, ops, wl = rt["api"], rt["ops"], rt["workloads"]
     rows = []
-    for name in BENCH_PRESETS:
-        preset = wl.get_workload(name)
-        gc.collect()
-        ops.reset_calls()
-        t0 = time.perf_counter()
-        sess = api.run(name, device=device)
-        if device == "cuda":
-            torch.cuda.synchronize()
-        row = {"path": "preset", "name": name, "arch": preset.arch,
-               "family": preset.family, "scenario": preset.scenario,
-               **preset_result(preset, wl.FAMILIES, sess, dict(ops.CALLS)),
-               "kernel_calls": dict(ops.CALLS),
-               "wall_s": time.perf_counter() - t0}
-        emit(row)
-        if not all(row["claims"].values()):
-            fail_later(f"preset {name}: claims {row['claims']}")
-        rows.append(row)
-        del sess
+    with tempfile.TemporaryDirectory(dir=rt["build_dir"]) as d:
+        for name in BENCH_PRESETS + SERVE_PRESETS:
+            preset = wl.get_workload(name)
+            workload = name
+            if name in SERVE_PRESETS:
+                spec = preset.spec()
+                workload = spec.replace(checkpoint=spec.checkpoint.replace(
+                    directory=str(Path(d) / name)))
+            gc.collect()
+            ops.reset_calls()
+            t0 = time.perf_counter()
+            sess = api.run(workload, device=device)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            row = {"path": "preset", "name": name, "arch": preset.arch,
+                   "family": preset.family, "scenario": preset.scenario,
+                   **preset_result(preset, wl.FAMILIES, sess,
+                                   dict(ops.CALLS)),
+                   "kernel_calls": dict(ops.CALLS),
+                   "wall_s": time.perf_counter() - t0}
+            emit(row)
+            if not all(row["claims"].values()):
+                fail_later(f"preset {name}: claims {row['claims']}")
+            rows.append(row)
+            del sess
     for name in REFUSED_PRESETS:
         try:
             api.run(name, device=device)
@@ -2480,6 +2525,485 @@ def presets_phase(torch, rt, device: str = "cuda") -> list:
             fail_later(f"preset {name}: not refused for slice A11 "
                        f"({refusal})")
     return rows
+
+
+# serving (A11's serve half): prefill and decode at full width, the
+# closed loop, the bench's A/B.  3l: recurrentgemma-9b, one (rec, rec,
+# attn) super-block, 4 prompts of 2,560 tokens — past the 2,048 local
+# window, so the prefill's KV ring has wrapped (slot p % 2,048) before
+# decoding starts.  2,560 rather than 2,100: the xla prefill's chunked
+# attention takes whole 512-token query chunks (the reference asserts
+# S % 512 == 0), and a prompt of 2,561 tokens is prefilled with
+# impl="pallas" (B2 takes any length) as the consistency reference
+SERVE_HYBRID = dict(batch=4, prompt=2560, decode=32)
+# the reference test's bound for the hybrid's prefill-to-decode
+# consistency in bfloat16 (tests/test_serving.py:28,46), relative to the
+# largest logit; also the pallas prefill's logits against the xla one's
+RTOL_SERVE_HYBRID = 0.03
+# qwen3-0.6b at full width and depth: generate, 8 x 64 prompts, 64 tokens
+SERVE_DENSE = dict(batch=8, prompt=64, gen=64)
+# one full-width layer each, decode against a prefill of one more token:
+# float32 at the reference test's exactness bound, 1e-4 relative; bfloat16
+# at the hybrid's 0.03 (cuBLAS picks a GEMM kernel by the row count, so a
+# 256-row prefill and a 4-row decode round differently in bfloat16)
+SERVE_LAYERS = (("falcon-mamba-7b", {}),
+                ("granite-moe-1b-a400m", {"capacity_factor": 8.0}))
+SERVE_LAYER = dict(batch=4, prompt=64)
+RTOL_SERVE_F32 = 1e-4
+# 3m: the closed loop at full width, falcon-mamba-7b at depth 1 (each
+# stage publishes a checkpoint of params and AdamW moments, 6.4 GB at one
+# layer); ServeSpec(requests_per_tick=8, prompt_len=64): 65 new tokens,
+# training rows of 128; capacity 256, shards of 16, n0 32, growth 2,
+# traffic_driven (1 inner step a check, 2 final), adamw_lm lr 1e-3 batch
+# 8, a probe of 16 rows, CheckpointSpec(keep=2, every=1), swap on
+SERVE_LOOP = dict(arch="falcon-mamba-7b", reduced=False, layers=1,
+                  capacity=256, seq_len=128, prompt=64, rpt=8, n0=32,
+                  shard=16, eval_rows=16, batch=8)
+# 3m': BENCH_serve.json's setting (benchmarks/bench_serve.py's defaults):
+# qwen3-0.6b reduced, capacity 256, rows of 33, prompts of 16
+SERVE_BENCH = dict(arch="qwen3-0.6b", reduced=True, layers=None,
+                   capacity=256, seq_len=32, prompt=16, rpt=8, n0=32,
+                   shard=16, eval_rows=16, batch=8)
+# card against CPU: the reduced hybrid's serving in float32 and a reduced
+# closed loop (the bench's setting at capacity 64)
+SERVE_CPU_LOOP = dict(SERVE_BENCH, capacity=64, dtype="float32")
+
+
+def sync(torch, device: str) -> None:
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def logits_rel(a, b) -> float:
+    """max |a - b| over max |b|: logits against a reference's."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / (b.abs().max() + 1e-9))
+
+
+def serve_tokens(torch, cfg, batch: int, length: int, seed: int, device):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (batch, length), dtype=np.int64)).to(device)
+
+
+def peak_gb(torch, device: str):
+    return torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" \
+        else None
+
+
+def reset_peak(torch, device: str) -> None:
+    if device == "cuda":
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def hybrid_serving(torch, rt, cfg, *, batch: int, prompt: int, decode: int,
+                   device: str = "cuda") -> dict:
+    """The hybrid's serving at ``cfg``'s width: prefill of ``prompt``
+    tokens with impl="xla" and impl="pallas" (B2 launched once per attn
+    layer, B4 never: the reference's prefill passes no impl to the
+    Griffin block, transformer.py:340), their logits within the bound;
+    one decode step from the xla prefill's cache against the last logits
+    of a pallas prefill of one more token; then greedy decoding to
+    ``decode`` steps, the ring buffer wrapped."""
+    T, ops = rt["transformer"], rt["ops"]
+    reset_peak(torch, device)
+    params = T.init_params(cfg, 0, device=device)
+    tok = serve_tokens(torch, cfg, batch, prompt + 1, 11, device)
+    cache_len = prompt + decode
+    n_attn = cfg.layer_types().count("attn")
+    row = {"path": "serving", "arch": cfg.name, "layers": cfg.num_layers,
+           "batch": batch, "prompt": prompt, "decode": decode,
+           "window": cfg.local_window}
+    runs = {}
+    for impl, length in (("xla", prompt), ("pallas", prompt),
+                         ("pallas", prompt + 1)):
+        ops.reset_calls()
+        sync(torch, device)
+        t0 = time.perf_counter()
+        logits, cache = T.prefill_step(cfg, params,
+                                       {"tokens": tok[:, :length]},
+                                       impl=impl, cache_len=cache_len)
+        sync(torch, device)
+        runs[(impl, length)] = (logits, cache)
+        row[f"prefill_{impl}_{length}_s"] = time.perf_counter() - t0
+        row[f"launches_{impl}_{length}"] = dict(ops.CALLS)
+    lx, cache = runs[("xla", prompt)]
+    lp = runs[("pallas", prompt)][0]
+    lref = runs[("pallas", prompt + 1)][0]
+    del runs
+    row["ring_slots"] = int(cache["stack_attn"]["k"].shape[2])
+    row["rel_pallas_vs_xla"] = logits_rel(lp, lx)
+    ops.reset_calls()
+    t0 = time.perf_counter()
+    logits, cache = T.decode_step(cfg, params, cache, {
+        "tokens": tok[:, prompt:prompt + 1], "position": prompt})
+    row["rel_decode_vs_prefill"] = logits_rel(logits, lref)
+    finite = bool(torch.isfinite(logits).all())
+    for i in range(1, decode):
+        nxt = torch.argmax(logits[:, :cfg.vocab_size], dim=-1)
+        logits, cache = T.decode_step(cfg, params, cache, {
+            "tokens": nxt[:, None], "position": prompt + i})
+    sync(torch, device)
+    row["decode_ms_per_token"] = (time.perf_counter() - t0) * 1e3 / decode
+    row["launches_decode"] = dict(ops.CALLS)
+    finite = finite and bool(torch.isfinite(logits).all())
+    row.update(finite=finite, rtol=RTOL_SERVE_HYBRID,
+               peak_memory_gb=peak_gb(torch, device))
+    emit(row)
+    want_pallas = {"flash_attention": n_attn} if n_attn else {}
+    if row[f"launches_pallas_{prompt}"] != want_pallas or \
+            row[f"launches_pallas_{prompt + 1}"] != want_pallas or \
+            row[f"launches_xla_{prompt}"] or row["launches_decode"]:
+        fail_later(f"serving {cfg.name}: launches {row}")
+    if not (finite and row["rel_pallas_vs_xla"] < RTOL_SERVE_HYBRID
+            and row["rel_decode_vs_prefill"] < RTOL_SERVE_HYBRID):
+        fail_later(f"serving {cfg.name}: consistency {row}")
+    if prompt > cfg.local_window and row["ring_slots"] != cfg.local_window:
+        fail_later(f"serving {cfg.name}: ring of {row['ring_slots']} slots")
+    del params, cache, logits
+    return row
+
+
+def dense_generate(torch, rt, cfg, *, batch: int, prompt: int, gen: int,
+                   device: str = "cuda") -> dict:
+    """``launch/serve.generate`` greedily at ``cfg``'s width and depth
+    (after a warm-up call): prefill s, decode ms a token, tokens/s, peak;
+    the tokens in the vocabulary and the same on a second call."""
+    T, serve = rt["transformer"], rt["serve"]
+    reset_peak(torch, device)
+    params = T.init_params(cfg, 0, device=device)
+    prompts = serve_tokens(torch, cfg, batch, prompt, 12, device)
+    serve.generate(cfg, params, prompts, gen_tokens=2)
+    sync(torch, device)
+    t0 = time.perf_counter()
+    T.prefill_step(cfg, params, {"tokens": prompts}, cache_len=prompt + gen)
+    sync(torch, device)
+    prefill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    toks = serve.generate(cfg, params, prompts, gen_tokens=gen)
+    sync(torch, device)
+    wall = time.perf_counter() - t0
+    again = serve.generate(cfg, params, prompts, gen_tokens=gen)
+    row = {"path": "serving_generate", "arch": cfg.name,
+           "layers": cfg.num_layers, "batch": batch, "prompt": prompt,
+           "gen": gen, "prefill_s": prefill_s, "generate_s": wall,
+           "decode_ms_per_token": (wall - prefill_s) * 1e3 / gen,
+           "tokens_per_s": batch * gen / wall,
+           "deterministic": bool(torch.equal(toks, again)),
+           "in_vocab": bool(int(toks.max()) < cfg.vocab_size
+                            and int(toks.min()) >= 0),
+           "shape": list(toks.shape),
+           "peak_memory_gb": peak_gb(torch, device)}
+    emit(row)
+    if not (row["deterministic"] and row["in_vocab"]
+            and row["shape"] == [batch, gen]):
+        fail_later(f"generate {cfg.name}: {row}")
+    return row
+
+
+def layer_consistency(torch, rt, cfg, *, batch: int, prompt: int,
+                      device: str = "cuda") -> dict:
+    """Decode against prefill at ``cfg``'s width: one decode step from a
+    prefill of ``prompt`` tokens against the last logits of a prefill of
+    ``prompt`` + 1, in float32 and in bfloat16."""
+    T = rt["transformer"]
+    row = {"path": "serving_layer", "arch": cfg.name,
+           "layers": cfg.num_layers, "batch": batch, "prompt": prompt}
+    for name, dtype, bound in (("float32", torch.float32, RTOL_SERVE_F32),
+                               ("bfloat16", torch.bfloat16,
+                                RTOL_SERVE_HYBRID)):
+        c = cfg.with_(dtype=dtype)
+        params = T.init_params(c, 0, device=device)
+        tok = serve_tokens(torch, c, batch, prompt + 1, 13, device)
+        ref, _ = T.prefill_step(c, params, {"tokens": tok},
+                                cache_len=prompt + 8)
+        _, cache = T.prefill_step(c, params, {"tokens": tok[:, :prompt]},
+                                  cache_len=prompt + 8)
+        dec, _ = T.decode_step(c, params, cache, {
+            "tokens": tok[:, prompt:prompt + 1], "position": prompt})
+        row[f"rel_{name}"] = logits_rel(dec, ref)
+        row[f"rtol_{name}"] = bound
+        if not row[f"rel_{name}"] < bound:
+            fail_later(f"serving layer {cfg.name} {name}: "
+                       f"{row[f'rel_{name}']} >= {bound}")
+        del params, cache
+    emit(row)
+    return row
+
+
+def serving_phase(torch, rt, device: str = "cuda", reduced: bool = False
+                  ) -> dict:
+    """3l: the hybrid's prefill and decode, qwen3-0.6b's generate, and one
+    layer each of falcon-mamba-7b and granite-moe-1b-a400m, at full width
+    (``reduced``: the reduced configs and small shapes, for the CPU)."""
+    configs = rt["configs"]
+
+    def config(arch, layers=None):
+        cfg = configs.get(arch)
+        if reduced:
+            return configs.reduced(cfg)
+        return cfg if layers is None else cfg.with_(num_layers=layers)
+
+    small = dict(batch=2, prompt=128, decode=4) if reduced else SERVE_HYBRID
+    out = {"hybrid": hybrid_serving(torch, rt, config("recurrentgemma-9b", 3),
+                                    device=device, **small)}
+    dense = dict(batch=2, prompt=16, gen=4) if reduced else SERVE_DENSE
+    out["generate"] = dense_generate(torch, rt, config("qwen3-0.6b"),
+                                     device=device, **dense)
+    layer = dict(batch=2, prompt=16) if reduced else SERVE_LAYER
+    out["layers"] = [layer_consistency(
+        torch, rt, config(arch, 1).with_(**kw), device=device, **layer)
+        for arch, kw in SERVE_LAYERS]
+    return out
+
+
+def serve_spec(api, ckpt_dir, *, arch: str, reduced: bool, layers, capacity,
+               seq_len, prompt, rpt, n0, shard, eval_rows, batch,
+               swap: bool = True, dtype: str | None = None):
+    """The closed loop's RunSpec (``benchmarks/bench_serve.py``'s
+    ``_spec`` with keep=2): traffic_driven (1 inner step, 2 final),
+    adamw_lm at lr 1e-3, growth 2 with a batch-cost clock."""
+    overrides = {}
+    if layers is not None:
+        overrides["num_layers"] = layers
+    if dtype is not None:
+        overrides["dtype"] = dtype
+    return api.RunSpec(
+        name="serve_loop",
+        data=api.DataSpec(kind="lm", plane="plane", corpus_size=capacity,
+                          seq_len=seq_len, eval_rows=eval_rows,
+                          shard_size=shard, seed=0),
+        policy=api.PolicySpec("traffic_driven",
+                              {"inner_steps": 1, "final_steps": 2}),
+        optimizer=api.OptimizerSpec("adamw_lm",
+                                    {"lr": 1e-3, "batch_size": batch}),
+        schedule=api.ScheduleSpec(n0=n0, growth=2.0, step_cost="batch"),
+        checkpoint=api.CheckpointSpec(directory=str(ckpt_dir), keep=2,
+                                      every=1),
+        serve=api.ServeSpec(enabled=True, requests_per_tick=rpt,
+                            prompt_len=prompt, capacity=capacity,
+                            swap=swap),
+        model=api.ModelSpec(arch=arch, reduced=reduced, overrides=overrides))
+
+
+def loop_resume(torch, rt, loop, ckpt_dir) -> dict:
+    """``benchmarks/bench_serve.py``'s resume contract over the closed
+    request log: the last published params bitwise the engine's final
+    ones, the clock saved at the final boundary the run's, the window
+    re-landed within the saved cursor, the meters restored."""
+    from repro_torch.data.plane import StreamingDataset
+    from repro_torch.elastic.checkpoint import (load_stage_checkpoint,
+                                                peek_stage_meta)
+    latest = sorted(Path(ckpt_dir).glob("stage_*.npz"))[-1].with_suffix("")
+    restored = load_stage_checkpoint(latest, loop.trace.params, None)
+    same = all(torch.equal(a, b) for a, b in zip(
+        rt["tree_leaves"](restored.params),
+        rt["tree_leaves"](loop.trace.params)))
+    meta = peek_stage_meta(latest)
+    with StreamingDataset([loop.store], masked=True,
+                          device=loop.device) as ds:
+        rewarm = restored.restore_dataset(ds)
+        meters_ok = ds.meter.snapshot() == meta["dataset"]["meter"]
+    return {"params_bitwise_equal": bool(same),
+            "clock_exact": meta["clock"] == loop.final_clock,
+            "cursor_ok": True, "meters_restored": bool(meters_ok),
+            "rewarm": rewarm,
+            "checkpoint_stage": restored.meta["cursor"]["stage"],
+            "checkpoint_n_t": restored.n_t}
+
+
+def loop_row(rep: dict) -> dict:
+    """A closed-loop report's line: the counts, the server's metrics, the
+    staleness, the meter, the stage table's time split."""
+    table = rep["stage_table"]
+    return {"ticks": rep["ticks"], "requests": rep["requests"],
+            "logged": rep["logged_examples"], "stages": rep["stages"],
+            "holds": rep["holds"], "steps": sum(r["steps"] for r in table),
+            "checkpoints": rep["checkpoints"], "server": rep["server"],
+            "serve_wall_s": rep["serve_wall_s"],
+            "tokens_per_s_wall": rep["tokens_per_s_wall"],
+            "warm_staleness": rep.get("staleness", {}).get("warm_samples"),
+            "max_warm_staleness": rep.get("staleness", {}).get("max_warm"),
+            "meter": {k: rep["data_plane"][k] for k in (
+                "examples_loaded", "examples_uploaded", "examples_accessed",
+                "loads", "uploads")},
+            "clock": rep["clock"],
+            "compute_s": sum(r["compute_s"] for r in table),
+            "checkpoint_write_s": [r["checkpoint_s"] for r in table],
+            "acquire_s": sum(r["acquire_s"] for r in table)}
+
+
+def loop_claims(swap_rep: dict, base_rep: dict | None, resume: dict) -> dict:
+    """BENCH_serve.json's claims (benchmarks/bench_serve.py): the six that
+    need no A/B, and with ``base_rep`` the throughput under swap."""
+    n = swap_rep["logged_examples"]
+    meter = swap_rep["data_plane"]
+    reps = [swap_rep] + ([base_rep] if base_rep is not None else [])
+    claims = {
+        "swap_latency_bounded":
+            swap_rep["server"]["swap_latency_max_s"] < 5.0,
+        "staleness_warm": swap_rep["staleness"]["max_warm"] <= 1,
+        "swapped_repeatedly": swap_rep["server"]["swap_count"] >= 2,
+        "no_dropped_requests": all(
+            r["server"]["requests_completed"]
+            == r["server"]["requests_started"] for r in reps),
+        "single_upload": (meter["examples_loaded"] == n
+                          and meter["examples_uploaded"] == n),
+        "resume_bit_compatible": bool(
+            resume["params_bitwise_equal"] and resume["clock_exact"]
+            and resume["cursor_ok"] and resume["meters_restored"]),
+    }
+    if base_rep is not None:
+        ratio = swap_rep["tokens_per_s_wall"] / max(
+            base_rep["tokens_per_s_wall"], 1e-9)
+        claims["throughput_under_swap"] = ratio >= 0.8
+    return claims
+
+
+def serve_loop_phase(torch, rt, setting: dict = SERVE_LOOP,
+                     device: str = "cuda") -> dict:
+    """3m: the closed loop (``repro_torch.serve.build_loop``) on
+    ``setting``, launch counts zeroed just before ``run`` and read just
+    after: B3 launched 3 x layers x steps (each train step's forward and
+    its rematerialization, each step's f̂ probe; the server decodes with
+    impl="xla"); BENCH_serve.json's six claims that need no A/B."""
+    api, ops, serve = rt["api"], rt["ops"], rt["serve_pkg"]
+    with tempfile.TemporaryDirectory(dir=rt["build_dir"]) as d:
+        spec = serve_spec(api, d, **setting)
+        reset_peak(torch, device)
+        t0 = time.perf_counter()
+        loop = serve.build_loop(spec, device=device)
+        build_s = time.perf_counter() - t0
+        ops.reset_calls()
+        t0 = time.perf_counter()
+        rep = loop.run()
+        sync(torch, device)
+        wall = time.perf_counter() - t0
+        launches = dict(ops.CALLS)
+        resume = loop_resume(torch, rt, loop, d)
+        n_layers = loop.cfg.num_layers
+        row = {"path": "serve_loop", "arch": loop.cfg.name,
+               "layers": n_layers, "d_model": loop.cfg.d_model,
+               "family": loop.family.name, "build_s": build_s,
+               "wall_s": wall, **loop_row(rep), "launches": launches,
+               "peak_memory_gb": peak_gb(torch, device), "resume": resume,
+               "f_full_first": loop.trace.points[0].f_full,
+               "f_full_final": loop.trace.final().f_full}
+        kernels = loop.family.kernels
+        want = {k: 3 * n_layers * row["steps"] for k in kernels} \
+            if loop.family.name == "mamba" else None
+        row["launches_implied"] = want
+        row["claims"] = loop_claims(rep, None, resume)
+        emit(row)
+        if want is not None and {k: launches.get(k, 0)
+                                 for k in kernels} != want:
+            fail_later(f"serve loop {loop.cfg.name}: launches {launches}, "
+                       f"implied {want}")
+        if not all(row["claims"].values()):
+            fail_later(f"serve loop {loop.cfg.name}: claims {row['claims']}")
+        if not math.isfinite(row["f_full_final"]):
+            fail_later(f"serve loop {loop.cfg.name}: f̂ {row['f_full_final']}")
+        del loop
+    gc.collect()
+    return row
+
+
+def warm_serving(torch, loop) -> None:
+    """Run the server's prefill and decode once outside the timed loop
+    (``bench_serve.py``'s ``_warmup``), so the A/B measures swapping."""
+    from repro_torch.serve.swap import serve_kernels
+    prefill, decode = serve_kernels(loop.cfg, loop.spec.data.seq_len + 1)
+    s = loop.spec.serve
+    prompts = torch.zeros((s.requests_per_tick, s.prompt_len),
+                          dtype=torch.long, device=loop.device)
+    _, cache = prefill(loop.params0, {"tokens": prompts})
+    decode(loop.params0, cache, {"tokens": prompts[:, :1],
+                                 "position": s.prompt_len})
+    sync(torch, loop.device.type)
+
+
+def serve_ab_phase(torch, rt, setting: dict = SERVE_BENCH,
+                   device: str = "cuda") -> dict:
+    """3m': BENCH_serve.json's A/B on its own setting: the same seeded
+    traffic with and without hot swap, the kernels warmed first; all seven
+    claims."""
+    api, serve = rt["api"], rt["serve_pkg"]
+    reps, resume = {}, None
+    for mode, swap in (("no_swap", False), ("swap", True)):
+        with tempfile.TemporaryDirectory(dir=rt["build_dir"]) as d:
+            loop = serve.build_loop(serve_spec(api, d, swap=swap, **setting),
+                                    device=device)
+            warm_serving(torch, loop)
+            reps[mode] = loop.run()
+            if swap:
+                resume = loop_resume(torch, rt, loop, d)
+        emit({"path": "serve_ab", "mode": mode, **loop_row(reps[mode])})
+    ratio = reps["swap"]["tokens_per_s_wall"] / max(
+        reps["no_swap"]["tokens_per_s_wall"], 1e-9)
+    claims = loop_claims(reps["swap"], reps["no_swap"], resume)
+    row = {"path": "serve_ab", "throughput_ratio": ratio, "claims": claims,
+           "resume": resume}
+    emit(row)
+    if not all(claims.values()):
+        fail_later(f"serve A/B: claims {claims}")
+    return row
+
+
+def serve_card_vs_cpu_phase(torch, rt, card: str = "cuda") -> dict:
+    """The reduced hybrid's prefill (both impls) and decode logits in
+    float32 on the card and the CPU from the same parameters, within
+    RTOL_F; then a reduced closed loop on both from the same weights:
+    every count of the report equal and the logged tokens equal
+    (``card``: the device held to the CPU)."""
+    T, api, serve = rt["transformer"], rt["api"], rt["serve_pkg"]
+    cfg = rt["configs"].reduced(rt["configs"].get("recurrentgemma-9b")) \
+        .with_(dtype=torch.float32)
+    p_cpu = T.init_params(cfg, 0, device="cpu")
+    p_gpu = rt["tree_map"](lambda t: t.to(card), p_cpu)
+    tok = serve_tokens(torch, cfg, 2, 33, 14, "cpu")
+    rel = {}
+    for impl in ("xla", "pallas"):
+        out = {}
+        for dev, p in (("cpu", p_cpu), (card, p_gpu)):
+            t = tok.to(dev)
+            logits, cache = T.prefill_step(cfg, p, {"tokens": t[:, :32]},
+                                           impl=impl, cache_len=40)
+            dec, _ = T.decode_step(cfg, p, cache, {"tokens": t[:, 32:],
+                                                   "position": 32})
+            out[dev] = (logits.cpu(), dec.cpu())
+        rel[f"prefill_{impl}"] = logits_rel(out[card][0], out["cpu"][0])
+        rel[f"decode_{impl}"] = logits_rel(out[card][1], out["cpu"][1])
+    row = {"card_vs_cpu": "serving", "arch": cfg.name, "rel": rel,
+           "rtol": RTOL_F}
+    reps, corpora = {}, {}
+    with tempfile.TemporaryDirectory(dir=rt["build_dir"]) as d:
+        cpu_loop = serve.build_loop(serve_spec(
+            api, Path(d) / "cpu", **SERVE_CPU_LOOP), device="cpu")
+        gpu_loop = serve.build_loop(
+            serve_spec(api, Path(d) / "card", **SERVE_CPU_LOOP),
+            device=card,
+            params0=rt["tree_map"](lambda t: t.to(card), cpu_loop.params0))
+        for dev, loop in (("cpu", cpu_loop), ("card", gpu_loop)):
+            reps[dev] = loop_row(loop.run())
+            corpora[dev] = loop.store.prefix(loop.store.num_examples)
+    keys = ("ticks", "requests", "logged", "stages", "holds", "steps",
+            "checkpoints", "meter", "clock")
+    row["loop_columns_equal"] = all(reps["cpu"][k] == reps["card"][k]
+                                    for k in keys)
+    row["loop_tokens_equal"] = bool(np.array_equal(corpora["cpu"],
+                                                   corpora["card"]))
+    if not row["loop_tokens_equal"] and \
+            corpora["cpu"].shape == corpora["card"].shape:
+        diff = np.argwhere(corpora["cpu"] != corpora["card"])
+        row["first_token_difference"] = diff[0].tolist()
+    emit(row)
+    if not all(v <= RTOL_F for v in rel.values()):
+        fail_later(f"serving card/CPU logits {rel}")
+    if not (row["loop_columns_equal"] and row["loop_tokens_equal"]):
+        fail_later(f"serve loop card/CPU {row} {reps}")
+    return row
 
 
 # SASS opcodes that show which units a kernel runs on: HGMMA (wgmma),
@@ -2519,7 +3043,9 @@ def main() -> None:
     from repro_torch.data import synthetic
     from repro_torch.data.device_window import window_rows
     from repro_torch.kernels import build, linear_grad, ops, ref
+    from repro_torch import serve as serve_pkg
     from repro_torch.launch import methods
+    from repro_torch.launch import serve
     from repro_torch.models import linear
     from repro_torch.models import transformer
     from repro_torch.optim import adam
@@ -2531,7 +3057,8 @@ def main() -> None:
               adam=adam, tree_map=tree_map, tree_leaves=tree_leaves,
               methods=methods, window_rows=window_rows, build_dir=build_dir,
               configs=configs, workloads=workloads,
-              resolve_family=workloads.resolve_family)
+              resolve_family=workloads.resolve_family, serve=serve,
+              serve_pkg=serve_pkg)
 
     # 1. environment
     smi = subprocess.run(
@@ -2583,12 +3110,21 @@ def main() -> None:
         for k, v in run["launches"].items():
             tf_launches[k] = tf_launches.get(k, 0) + v
     zoo_phase(torch, rt)
-    presets_phase(torch, rt)
+    presets = presets_phase(torch, rt)
+    serve_preset = {k: v for r in presets if r["name"] in SERVE_PRESETS
+                    for k, v in r["kernel_calls"].items()}
+    # serving: prefill and decode at full width, the closed loop, the A/B
+    serving = serving_phase(torch, rt)
+    serve_loop = serve_loop_phase(torch, rt)
+    serve_ab_phase(torch, rt)
     # 4. card against CPU
     card_vs_cpu_phase(torch, rt)
     for arch in ("falcon-mamba-7b", "recurrentgemma-9b") + tuple(
             a for a, _ in TF_RUNS):
         lm_card_vs_cpu_phase(torch, rt, arch)
+    serve_card_vs_cpu_phase(torch, rt)
+    hybrid_prefill = serving["hybrid"][
+        f"launches_pallas_{serving['hybrid']['prompt']}"]
     if FAILED:
         raise SystemExit(f"chip_smoke: {len(FAILED)} checks failed: "
                          f"{FAILED}")
@@ -2602,6 +3138,8 @@ def main() -> None:
         "launches_convex_methods": method_launches,
         "launches_dist": dist_launches,
         "launches_transformer_moe": tf_launches.get("linear_value_grad", 0),
+        "launches_serve_loop": serve_loop["launches"].get(
+            "linear_value_grad", 0),
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -2614,6 +3152,10 @@ def main() -> None:
         "launches": lm["launches"]["ssm_scan"],
         "launches_dist": dist_mamba["launches"]["ssm_scan"],
         "launches_transformer_moe": tf_launches.get("ssm_scan", 0),
+        "launches_serve_loop": serve_loop["launches"].get("ssm_scan", 0),
+        "launches_serve_loop_implied":
+            (serve_loop["launches_implied"] or {}).get("ssm_scan"),
+        "launches_hybrid_prefill": hybrid_prefill.get("ssm_scan", 0),
         "max_abs_err": scan_row["max_abs_err"],
         "ms": scan_row["kernel_ms"], "plain_ms": scan_row["plain_ms"],
         "bound_ms": scan_row["bound_ms"], "bound_by": scan_row["bound_by"],
@@ -2630,6 +3172,8 @@ def main() -> None:
         "launches": hybrid["launches"]["rglru_scan"],
         "launches_dist": dist_hybrid["launches"]["rglru_scan"],
         "launches_transformer_moe": tf_launches.get("rglru_scan", 0),
+        "launches_hybrid_prefill": hybrid_prefill.get("rglru_scan", 0),
+        "launches_serve_preset": serve_preset.get("rglru_scan", 0),
         "max_abs_err": rglru_row["max_abs_err"],
         "ms": rglru_row["kernel_ms"], "plain_ms": rglru_row["plain_ms"],
         "bound_ms": rglru_row["bound_ms"],
@@ -2645,6 +3189,8 @@ def main() -> None:
         "launches": hybrid["launches"]["flash_attention"],
         "launches_dist": dist_hybrid["launches"]["flash_attention"],
         "launches_transformer_moe": tf_launches.get("flash_attention", 0),
+        "launches_hybrid_prefill": hybrid_prefill.get("flash_attention", 0),
+        "launches_serve_preset": serve_preset.get("flash_attention", 0),
         "max_abs_err": attn_row["max_abs_err"],
         "ms": attn_row["kernel_ms"], "plain_ms": attn_row["plain_ms"],
         "bound_ms": attn_row["bound_ms"], "bound_by": attn_row["bound_by"],

@@ -17,6 +17,7 @@ from ..data.shards import InMemoryShardStore, MemmapShardStore, ThrottledStore
 from ..dist.topology import ProcessTopology, SimulatedTopology
 from ..optim import REGISTRY as _OPTIM_REGISTRY
 from ..optim.api import BatchOptimizer
+from ..serve.policy import TrafficDriven
 from .specs import OptimizerSpec, PolicySpec, SpecError
 
 
@@ -67,8 +68,7 @@ POLICIES = Registry("policy", {
     "two_track": TwoTrack,
     "bet_gradvar": GradientVariance,
     "gradient_variance": GradientVariance,
-}, pending={
-    "traffic_driven": "the serve slice (ROADMAP queue A11)",
+    "traffic_driven": TrafficDriven,
 })
 
 # --------------------------------------------------------------- optimizers

@@ -17,9 +17,11 @@ in this process; convex runs opt into the elastic runtime
 and multi-host LM runs always run it, as in the reference.  ``build``
 validates the spec eagerly: unknown names and invalid combinations fail
 with a :class:`SpecError` as in the reference, and every branch a later
-slice brings (tiering, observability, serving, one ``torch.distributed``
-process per host) fails with a :class:`SpecError` that names it.
-``run(workload)`` builds and runs a workload preset by name.
+slice brings (tiering, observability, one ``torch.distributed`` process
+per host) fails with a :class:`SpecError` that names it.  A serve spec is
+refused as the reference refuses it, pointing at
+``repro_torch.serve.build_loop``.  ``run(workload)`` builds and runs a
+workload preset by name, serve presets through ``build_loop``.
 
 ``device`` is a keyword of ``build``, ``run``, ``resume_session`` and
 ``convex_problem``, not a spec field, so the ``RunSpec`` JSON schema
@@ -129,9 +131,6 @@ def _validate(spec: RunSpec) -> None:
     if spec.obs.enabled or spec.obs.fleet or spec.obs.health:
         raise _not_ported("observability (ObsSpec)",
                           "the observability slice (ROADMAP queue A11)")
-    if spec.serve.enabled:
-        raise _not_ported("serve-while-you-train (ServeSpec)",
-                          "the serve slice (ROADMAP queue A11)")
     if spec.topology.kind == "process" and hosts > 1:
         # each process would fill only its own lane of a whole stacked
         # window, and nothing yet all-reduces the objective, the LM
@@ -216,6 +215,12 @@ def _validate(spec: RunSpec) -> None:
         raise SpecError(f"{LM_OPTIMIZER!r} is the LM train step; a convex "
                         f"run needs a batch optimizer "
                         f"({[n for n in OPTIMIZERS.names() if n != LM_OPTIMIZER]})")
+    if spec.serve.enabled:
+        raise SpecError(
+            "ServeSpec.enabled describes the serve-while-you-train closed "
+            "loop; build it with repro_torch.serve.build_loop(spec), not "
+            "repro_torch.api.build — the training corpus is the live "
+            "request log, which an offline session cannot reconstruct")
 
 
 def _validate_policy(spec: RunSpec, policy) -> None:
@@ -474,6 +479,13 @@ def resume_session(directory, *, device="cuda") -> "Session":
             f"bare StageCheckpointer, not a Session) — rebuild the stack "
             f"explicitly and call Session.resume()")
     spec = RunSpec.from_dict(stored)
+    if spec.serve.enabled:
+        raise SpecError(
+            "this checkpoint belongs to a serve-while-you-train run: its "
+            "corpus is the live request log, which a spec rebuild cannot "
+            "regenerate — restore through "
+            "repro_torch.elastic.checkpoint.load_stage_checkpoint over the "
+            "closed log instead")
     spec = spec.replace(checkpoint=spec.checkpoint.replace(
         directory=str(d), resume=True))
     return build(spec, device=device)
@@ -481,19 +493,26 @@ def resume_session(directory, *, device="cuda") -> "Session":
 
 # ------------------------------------------------------------------ workloads
 def run(workload: "str | RunSpec", *, device="cuda",
-        progress: Callable | None = None, probe: Callable | None = None
-        ) -> "Session":
+        progress: Callable | None = None, probe: Callable | None = None):
     """One string, one run: ``repro_torch.api.run("falcon-mamba@stream")``.
 
     ``workload`` is a preset name from the ``WORKLOADS`` registry (or any
     ``arch@scenario`` string the workload grammar parses — see
-    ``repro_torch.workloads``), or an explicit :class:`RunSpec`.  It is
-    built on ``device``, run, and the session returned with its ``trace``
-    populated.  A serve-enabled or observed spec is refused by ``build``
-    (those come with ROADMAP queue A11)."""
+    ``repro_torch.workloads``), or an explicit :class:`RunSpec`.  Offline
+    specs build a :class:`Session` on ``device``, run it, and return the
+    session with its ``trace`` populated; serve-enabled specs route
+    through ``repro_torch.serve.build_loop`` and return the finished
+    ``ServeTrainLoop`` (its trace under ``.trace``, its RunReport under
+    ``.run_report``).  An observed
+    spec is refused by ``build`` (it comes with ROADMAP queue A11)."""
     if isinstance(workload, str):
         from ..workloads import get_workload
         workload = get_workload(workload).spec()
+    if workload.serve.enabled:
+        from ..serve import build_loop
+        loop = build_loop(workload, device=device)
+        loop.run()
+        return loop
     session = build(workload, device=device)
     session.run(progress=progress, probe=probe)
     return session

@@ -49,6 +49,7 @@ returns new tensors), so both tracks can start from one ``w``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Callable
@@ -382,9 +383,21 @@ def _host(t: torch.Tensor) -> np.ndarray:
 
 def _pull(ctx, tensors: dict) -> dict:
     """One device-to-host transfer of a chunk's records (the reference's
-    one ``jax.device_get`` of a dict), counted in ``host_transfers``."""
+    one ``jax.device_get`` of a dict), counted in ``host_transfers`` and,
+    with a recorder, emitted as ``engine.transfer``."""
+    out = tree_map(_host, tensors)
     ctx["transfers"] += 1
-    return tree_map(_host, tensors)
+    if ctx["obs"] is not None:
+        ctx["obs"].instant("engine.transfer", transfers=ctx["transfers"])
+    return out
+
+
+def _obs_span(recorder, name: str, **fields):
+    """A recorder span when a recorder is wired, a no-op otherwise: every
+    engine hook is one ``None`` check without one."""
+    if recorder is None:
+        return contextlib.nullcontext({})
+    return recorder.span(name, **fields)
 
 
 def _param_buffer(w, k: int):
@@ -448,7 +461,14 @@ class BetEngine:
     charges the clock (default: the whole window).  ``wait_on_expand``
     blocks the clock on window residency at stage entry;
     ``carry_state`` keeps optimizer state across Two-Track stages instead
-    of re-initializing."""
+    of re-initializing.
+
+    ``recorder`` (an ``obs.EventRecorder``) makes the engine emit the
+    reference's structured events: per stage ``stage.begin``, the
+    ``stage.acquire``, ``stage.compute`` and ``stage.flush`` spans,
+    ``engine.transfer`` per pull, ``expand.decision`` per policy
+    consultation, the ``stage.totals`` counter and ``stage.end``.  Off by
+    default; the trajectory is bit-identical either way."""
     schedule: BETSchedule = dataclasses.field(default_factory=BETSchedule)
     step_cost: Callable[[int], int] | None = None
     wait_on_expand: bool = False
@@ -456,6 +476,7 @@ class BetEngine:
     max_engine_steps: int = 100_000     # runaway-policy backstop
     # once-per-stage boundary callback (StageEnd)
     stage_callback: Callable | None = None
+    recorder: Any | None = None
 
     def run(self, dataset, optimizer: BatchOptimizer, objective: Objective,
             policy: ExpansionPolicy, *, w0=None, clock: SimulatedClock | None = None,
@@ -475,10 +496,7 @@ class BetEngine:
         trace = Trace(trace_name or policy.name,
                       meta={"engine": "BetEngine", "policy": policy.name,
                             "optimizer": optimizer.name, **(meta or {})})
-        cost = self.step_cost or (lambda n: n)
-        ctx = {"trace": trace, "clock": clock, "cost": cost,
-               "probe": probe, "progress": progress, "dataset": dataset,
-               "step_count": 0, "transfers": 0, "stages": 0, "overshoot": 0}
+        ctx = self._context(trace, clock, probe, progress, dataset)
         first_stage = 0
         if resume is not None:
             ctx.update(step_count=resume.step_count,
@@ -505,6 +523,99 @@ class BetEngine:
         trace.meta["host_transfers"] = ctx["transfers"]
         trace.meta["race_overshoot"] = ctx["overshoot"]
         trace.meta["stages"] = ctx["stages"]
+        return trace
+
+    def _context(self, trace, clock, probe, progress, dataset) -> dict:
+        """A run's mutable state, shared by its stages."""
+        return {"trace": trace, "clock": clock,
+                "cost": self.step_cost or (lambda n: n), "probe": probe,
+                "progress": progress, "dataset": dataset,
+                "obs": self.recorder, "step_count": 0, "transfers": 0,
+                "stages": 0, "overshoot": 0}
+
+    # ------------------------------------------------------------ online runs
+    def run_online(self, dataset, optimizer: BatchOptimizer,
+                   objective: Objective, policy: ExpansionPolicy, *,
+                   source=None, w0=None, clock: SimulatedClock | None = None,
+                   eval_data=None, probe: Callable | None = None,
+                   trace_name: str | None = None, meta: dict | None = None,
+                   progress: Callable | None = None, opt_state0=None,
+                   max_stages: int = 10_000) -> Trace:
+        """``run`` over a corpus still *arriving* (serve-while-you-train).
+
+        ``run`` precomputes the stage plan from ``dataset.n`` once; here
+        the corpus size is discovered as the serving path logs requests, so
+        the stage plan is built one stage at a time: each stage targets
+        ``n_next = ceil(growth * n_t)`` and the policy (normally
+        ``serve.policy.TrafficDriven``) *holds the stage open* — more inner
+        steps on the current window — until enough new examples have been
+        sealed to honor that target, or the ``source`` store closes.  Once
+        the source is closed and the window covers everything sealed, one
+        final full-window stage runs and the loop ends.
+
+        ``eval_data`` is required: with the corpus still arriving there is
+        no full-window f̂ to fall back to.  Two-track policies are rejected
+        — the race needs the *next* window resident up front, which is
+        exactly what an online corpus cannot promise.  ``w0`` and
+        ``opt_state0`` are copied: the run never writes into, or hands
+        out, the caller's tensors (a server may be serving them).
+        """
+        if eval_data is None:
+            raise ValueError(
+                "run_online requires eval_data: the full corpus is not "
+                "available for f̂ while data is still arriving")
+        if policy.kind == "two_track":
+            raise ValueError(
+                f"policy {policy.name!r} is two_track-kind: the race needs "
+                f"next-window residency up front; run_online supports only "
+                f"scan policies")
+        if dataset.n < 1:
+            raise ValueError(
+                "run_online needs at least one sealed example before "
+                "training starts (seed the source first)")
+        clock = clock or SimulatedClock()
+
+        def copy(x):
+            return x.clone() if isinstance(x, torch.Tensor) else x
+        w = tree_map(copy, w0) if w0 is not None else torch.zeros(
+            (dataset.d,), dtype=torch.float32, device=eval_data[0].device)
+        state = optimizer.init(w) if opt_state0 is None else \
+            tree_map(copy, opt_state0)
+        trace = Trace(trace_name or policy.name,
+                      meta={"engine": "BetEngine.online",
+                            "policy": policy.name,
+                            "optimizer": optimizer.name, **(meta or {})})
+        ctx = self._context(trace, clock, probe, progress, dataset)
+        carry = [w, state]
+        del w, state
+        growth = self.schedule.growth
+        stage = 0
+        n_t = min(self.schedule.n0, dataset.n)
+        n_prev = n_t
+        while True:
+            closed = bool(getattr(source, "closed", True))
+            is_final = closed and n_t >= dataset.n
+            n_next = None if is_final else \
+                max(n_t + 1, int(math.ceil(n_t * growth)))
+            info = StageInfo(stage=stage, n_t=n_t, n_prev=n_prev,
+                             is_final=is_final, N=dataset.n, n_next=n_next)
+            carry[1] = optimizer.reset_memory(carry[1])
+            self._run_scan_stage(ctx, dataset, optimizer, objective, policy,
+                                 info, carry, eval_data)
+            if is_final:
+                break
+            # the stage was held open until the target (or close) landed;
+            # clip to what is actually sealed now
+            n_prev, n_t = n_t, min(dataset.n, n_next)
+            stage += 1
+            if stage > max_stages:
+                raise RuntimeError(
+                    f"run_online exceeded {max_stages} stages without the "
+                    f"source closing")
+        trace.params = carry[0]
+        trace.meta["host_transfers"] = ctx["transfers"]
+        trace.meta["stages"] = ctx["stages"]
+        trace.meta["final_n"] = dataset.n
         return trace
 
     # ---------------------------------------------------------- stage windows
@@ -581,7 +692,13 @@ class BetEngine:
                         eval_full=None):
         """One stage from ``carry`` ([w, state], updated in place)."""
         eval_full = policy.eval_full if eval_full is None else eval_full
-        win = self._acquire_window(dataset, info.n_t, info.n_next)
+        obs = ctx["obs"]
+        if obs is not None:
+            obs.set_context(stage=info.stage)
+            obs.instant("stage.begin", window=info.n_t, n_next=info.n_next,
+                        final=info.is_final)
+        with _obs_span(obs, "stage.acquire", window=info.n_t):
+            win = self._acquire_window(dataset, info.n_t, info.n_next)
         if self.wait_on_expand:
             ctx["clock"].wait_for(info.n_t)
         probe_k = min(int(policy.probe), info.n_t) \
@@ -590,20 +707,32 @@ class BetEngine:
         rec = StageRecords()
         while True:
             k = int(policy.plan_steps(info, rec.steps))
-            pulled = self._run_chunk(ctx, optimizer, objective, carry, win,
-                                     full_data, k, eval_full=eval_full,
-                                     probe_k=probe_k)
+            with _obs_span(obs, "stage.compute", steps=k, window=info.n_t):
+                pulled = self._run_chunk(ctx, optimizer, objective, carry,
+                                         win, full_data, k,
+                                         eval_full=eval_full, probe_k=probe_k)
             rec.add_chunk(pulled["f"], pulled.get("f_full"), pulled.get("w"))
             if probe_k:
                 rec.var, rec.g2 = float(pulled["var"]), float(pulled["g2"])
-            if policy.should_expand(info, rec):
+            expand = policy.should_expand(info, rec)
+            if obs is not None:
+                fs = pulled["f"]
+                obs.instant("expand.decision", expand=bool(expand),
+                            window=info.n_t, steps=rec.steps, var=rec.var,
+                            g2=rec.g2, triggered=bool(rec.triggered),
+                            f_last=float(fs[-1]) if len(fs) else None)
+            if expand:
                 break
             if rec.steps > self.max_engine_steps:
                 raise RuntimeError(
                     f"policy {policy.name} never expanded after {rec.steps} steps")
-        self._flush_stage(ctx, policy, info, rec, eval_charge=probe_k)
+        with _obs_span(obs, "stage.flush", window=info.n_t):
+            self._flush_stage(ctx, policy, info, rec, eval_charge=probe_k)
         policy.stage_end(info, rec)
         self._stage_boundary(ctx, info, *carry)
+        if obs is not None:
+            obs.instant("stage.end", window=info.n_t)
+            obs.clear_context("stage")
 
     def _stage_boundary(self, ctx, info: StageInfo, w, state) -> None:
         """Once-per-stage boundary: the stage's records are flushed, the
@@ -660,9 +789,24 @@ class BetEngine:
             f_window=fs[idx], f_full=ffull[idx], extra=extras)
         ctx["step_count"] += n
         ctx["stages"] += 1
+        self._emit_stage_totals(ctx, info, steps=n, touched=touched)
         if ctx["progress"]:
             for p in new:
                 ctx["progress"](p)
+
+    @staticmethod
+    def _emit_stage_totals(ctx, info: StageInfo, *, steps: int,
+                           touched: int) -> None:
+        """One ``stage.totals`` counter per stage: the cumulative clock and
+        engine state the RunReport differences into per-stage rows."""
+        if ctx["obs"] is None:
+            return
+        clock = ctx["clock"]
+        ctx["obs"].counter(
+            "stage.totals", tags={"stage": info.stage}, window=info.n_t,
+            steps=steps, touched=touched, time=clock.time,
+            accesses=clock.data_accesses, loaded=clock.points_loaded,
+            transfers=ctx["transfers"], stages=ctx["stages"])
 
     # ------------------------------------------------------- two-track stages
     def _race(self, ctx, optimizer, objective, policy, w, st_slow, st_fast,
@@ -723,13 +867,58 @@ class BetEngine:
             out["W"] = tree_map(lambda *c: np.concatenate(c)[:s], *host_W)
         return w_slow, st_slow, out
 
+    def _flush_race_stage(self, ctx, policy, info: StageInfo,
+                          rec: StageRecords, probe_k: int) -> None:
+        """A racing stage's flush: replay the clock charges and land the
+        stage in the trace with one Trace.extend call."""
+        clock, cost, trace = ctx["clock"], ctx["cost"], ctx["trace"]
+        n_prev, n_t = info.n_prev, info.n_t
+        s = rec.steps
+        self._collect_host_records(ctx, info)
+        # replay the per-step clock charges: slow update, fast update,
+        # condition evaluation (charged per the paper unless disabled),
+        # plus one variance-probe eval at each race round's end
+        times = np.empty(s)
+        accs = np.empty(s, dtype=np.int64)
+        touched = 0
+        i = 0
+        for clen in rec.chunk_lengths():
+            for j in range(clen):
+                clock.batch_update(cost(n_t))
+                clock.batch_update(cost(n_prev))
+                touched += cost(n_t) + cost(n_prev)
+                if policy.charge_condition_eval:
+                    clock.eval_pass(cost(n_t))
+                    touched += cost(n_t)
+                if probe_k and j == clen - 1:
+                    clock.eval_pass(probe_k)
+                    touched += probe_k
+                times[i], accs[i] = clock.time, clock.data_accesses
+                i += 1
+        self._note_access(ctx, touched)
+        extras = [{"f_fast_on_t": float(rec.f_fast_on_t[i])}
+                  for i in range(s)]
+        if ctx["probe"] is not None:
+            for i in range(s):
+                extras[i]["probe"] = float(ctx["probe"](rec.param_at(i)))
+        new = trace.extend(
+            step=np.arange(ctx["step_count"], ctx["step_count"] + s),
+            stage=info.stage, window=n_t, time=times, accesses=accs,
+            f_window=rec.f_window(), f_full=rec.f_full(), extra=extras)
+        ctx["step_count"] += s
+        ctx["stages"] += 1
+        self._emit_stage_totals(ctx, info, steps=s, touched=touched)
+        if ctx["progress"]:
+            for p in new:
+                ctx["progress"](p)
+
     def _run_two_track(self, ctx, dataset, optimizer, objective,
                        policy: TwoTrack, carry: list, full_data, *,
                        first_stage: int = 0):
         """The racing stages, then the final phase, from ``carry`` ([w,
         state], updated in place); stages before ``first_stage`` ran before
         a checkpoint and are skipped."""
-        clock, cost, trace = ctx["clock"], ctx["cost"], ctx["trace"]
+        clock, obs = ctx["clock"], ctx["obs"]
         w, state = carry
         carry.clear()
         *racing, final_info = self.stage_infos(policy, dataset.n)
@@ -737,8 +926,13 @@ class BetEngine:
             if info.stage < first_stage:
                 continue                # completed before the checkpoint
             n_prev, n_t = info.n_prev, info.n_t
-            win_t = self._acquire_window(dataset, n_t, info.n_next)
-            win_prev = dataset.window(n_prev)  # resident prefix: no loads
+            if obs is not None:
+                obs.set_context(stage=info.stage)
+                obs.instant("stage.begin", window=n_t, n_next=info.n_next,
+                            final=info.is_final)
+            with _obs_span(obs, "stage.acquire", window=n_t):
+                win_t = self._acquire_window(dataset, n_t, info.n_next)
+                win_prev = dataset.window(n_prev)  # resident prefix: no loads
             if self.wait_on_expand:
                 clock.wait_for(n_t)
             st_slow = optimizer.reset_memory(
@@ -753,9 +947,10 @@ class BetEngine:
             # a ComposedPolicy veto can hold the stage open, re-racing from
             # the current point with a fresh fast track
             while True:
-                w, state, pulled = self._race(
-                    ctx, optimizer, objective, policy, w, st_slow, st_fast,
-                    win_t, win_prev, full_data)
+                with _obs_span(obs, "stage.compute", window=n_t):
+                    w, state, pulled = self._race(
+                        ctx, optimizer, objective, policy, w, st_slow,
+                        st_fast, win_t, win_prev, full_data)
                 f_slow, f_fast, f_full = pulled["hist"]
                 rec.add_chunk(f_slow, f_full, pulled.get("W"))
                 fast_hist.append(f_fast)
@@ -765,7 +960,14 @@ class BetEngine:
                     v, g2 = variance_stats(objective, w, win_t, probe_k)
                     stats = _pull(ctx, {"var": v, "g2": g2})
                     rec.var, rec.g2 = float(stats["var"]), float(stats["g2"])
-                if policy.should_expand(info, rec):
+                expand = policy.should_expand(info, rec)
+                if obs is not None:
+                    fs = rec.f_fast_on_t
+                    obs.instant("expand.decision", expand=bool(expand),
+                                window=n_t, steps=rec.steps, var=rec.var,
+                                g2=rec.g2, triggered=rec.triggered,
+                                f_last=float(fs[-1]) if len(fs) else None)
+                if expand:
                     break
                 if rec.steps > self.max_engine_steps:
                     raise RuntimeError(
@@ -773,45 +975,13 @@ class BetEngine:
                         f"{rec.steps} racing steps")
                 st_slow = state
                 st_fast = optimizer.init(w)
-            s = rec.steps
-            self._collect_host_records(ctx, info)
-            # replay the per-step clock charges: slow update, fast update,
-            # condition evaluation (charged per the paper unless disabled),
-            # plus one variance-probe eval at each race round's end
-            times = np.empty(s)
-            accs = np.empty(s, dtype=np.int64)
-            touched = 0
-            i = 0
-            for clen in rec.chunk_lengths():
-                for j in range(clen):
-                    clock.batch_update(cost(n_t))
-                    clock.batch_update(cost(n_prev))
-                    touched += cost(n_t) + cost(n_prev)
-                    if policy.charge_condition_eval:
-                        clock.eval_pass(cost(n_t))
-                        touched += cost(n_t)
-                    if probe_k and j == clen - 1:
-                        clock.eval_pass(probe_k)
-                        touched += probe_k
-                    times[i], accs[i] = clock.time, clock.data_accesses
-                    i += 1
-            self._note_access(ctx, touched)
-            extras = [{"f_fast_on_t": float(rec.f_fast_on_t[i])}
-                      for i in range(s)]
-            if ctx["probe"] is not None:
-                for i in range(s):
-                    extras[i]["probe"] = float(ctx["probe"](rec.param_at(i)))
-            new = trace.extend(
-                step=np.arange(ctx["step_count"], ctx["step_count"] + s),
-                stage=info.stage, window=n_t, time=times, accesses=accs,
-                f_window=rec.f_window(), f_full=rec.f_full(), extra=extras)
-            ctx["step_count"] += s
-            ctx["stages"] += 1
-            if ctx["progress"]:
-                for p in new:
-                    ctx["progress"](p)
+            with _obs_span(obs, "stage.flush", window=n_t):
+                self._flush_race_stage(ctx, policy, info, rec, probe_k)
             policy.stage_end(info, rec)
             self._stage_boundary(ctx, info, w, state)
+            if obs is not None:
+                obs.instant("stage.end", window=n_t)
+                obs.clear_context("stage")
 
         # final phase: full window until the step budget is spent
         if first_stage > final_info.stage:

@@ -22,10 +22,12 @@ a list before its future completes, so that check reads only the failures,
 not every pending load (the reference scans all of them on every call,
 which costs an S-shard expansion S²/2 checks).
 
-The reference's event hooks (``recorder``, ``_obs``, ``_obs_depth``: one
-event per schedule, load, land and cancel) feed its observability
-subsystem, and its ``max_inflight`` backlog serves only the tiered corpus;
-both come with ROADMAP queue A11 and are left out here.
+With a ``recorder`` attached (``obs.metrics.attach_prefetcher``) each
+schedule, load, land and cancel emits one event, as in the reference
+(``prefetch.loaded`` from the worker thread), with a ``prefetch.depth``
+counter of the in-flight loads.  The reference's ``max_inflight`` backlog
+serves only the tiered corpus and comes with it (ROADMAP queue A11); the
+depth counter's ``backlog`` is therefore always 0 here.
 The loads themselves are numpy, as in the reference: the plane's
 ``DeviceWindow`` puts the rows on the card.
 """
@@ -90,6 +92,22 @@ class Prefetcher:
         self._failed: deque[tuple[int, int]] = deque()
         self._lock = threading.Lock()
         self._closed = False
+        # observability: when wired, schedule/load/land/cancel each emit
+        # one event; prefetch.loaded fires on the worker thread,
+        # interleaved with the driving thread's events in ``seq`` order
+        self.recorder = None
+        self.recorder_tags: dict = {}
+
+    def _obs(self, name: str, **fields) -> None:
+        rec = self.recorder
+        if rec is not None:
+            rec.instant(name, tags=self.recorder_tags or None, **fields)
+
+    def _obs_depth(self, inflight: int) -> None:
+        rec = self.recorder
+        if rec is not None:
+            rec.counter("prefetch.depth", tags=self.recorder_tags or None,
+                        inflight=inflight, backlog=0)
 
     # ------------------------------------------------------------------ api
     def schedule(self, shard_ids) -> None:
@@ -100,11 +118,18 @@ class Prefetcher:
             if self._closed:
                 return
             self._sweep_failures_locked()
+            new_ids = []
             for i in shard_ids:
                 if i not in self._pending:
                     t = next(self._tickets)
                     self._pending[i] = (
                         t, self._pool.submit(self._timed_load, i, t))
+                    new_ids.append(i)
+            inflight = len(self._pending)
+        for i in new_ids:        # emit outside the lock
+            self._obs("prefetch.scheduled", shard=int(i))
+        if new_ids:
+            self._obs_depth(inflight)
 
     def cancel(self, shard_ids) -> list[int]:
         """Drop scheduled loads whose shards no longer belong here (elastic
@@ -123,6 +148,11 @@ class Prefetcher:
                 if entry is not None:
                     entry[1].cancel()
                     dropped.append(i)
+            inflight = len(self._pending)
+        for i in dropped:
+            self._obs("prefetch.cancelled", shard=int(i))
+        if dropped:
+            self._obs_depth(inflight)
         return dropped
 
     def scheduled(self) -> list[int]:
@@ -177,6 +207,9 @@ class Prefetcher:
                 nbytes=sum(a.nbytes for a in arrays),
                 examples=self.stores[0].examples_in(shard),
                 duration_s=duration, blocked_s=blocked, prefetched=prefetched)
+        self._obs("prefetch.landed", shard=int(shard),
+                  prefetched=prefetched, blocked_s=blocked,
+                  duration_s=duration)
         return arrays
 
     def close(self) -> None:
@@ -227,4 +260,8 @@ class Prefetcher:
             if ticket is not None:
                 self._failed.append((shard, ticket))
             raise
-        return arrays, time.perf_counter() - t0
+        duration = time.perf_counter() - t0
+        # worker-thread emission: lands after the shard's
+        # prefetch.scheduled and before its prefetch.landed
+        self._obs("prefetch.loaded", shard=int(shard), duration_s=duration)
+        return arrays, duration

@@ -20,6 +20,7 @@ tiered corpus (ROADMAP queue A11) and is refused on restore.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -190,11 +191,14 @@ class StageCheckpointer:
     after stages 0, every, 2*every, ...); the final stage always saves.
     ``keep`` bounds the checkpoints on disk.  ``spec`` (a
     ``RunSpec.to_dict()``) is saved into every checkpoint's meta, making
-    the checkpoint a self-describing, re-buildable artifact."""
+    the checkpoint a self-describing, re-buildable artifact.  With an
+    ``obs.EventRecorder`` as ``recorder`` every publish emits one
+    ``checkpoint.publish`` span covering the atomic write."""
     directory: str
     keep: int = 3
     every: int = 1
     spec: dict | None = None
+    recorder: object = None
 
     def __post_init__(self):
         if self.keep < 1:
@@ -209,6 +213,13 @@ class StageCheckpointer:
         self.save(end)
 
     def save(self, end: StageEnd) -> pathlib.Path:
+        span = self.recorder.span(
+            "checkpoint.publish", stage=end.info.stage, n_t=end.info.n_t) \
+            if self.recorder is not None else contextlib.nullcontext()
+        with span:
+            return self._save(end)
+
+    def _save(self, end: StageEnd) -> pathlib.Path:
         d = pathlib.Path(self.directory)
         path = d / f"stage_{end.info.stage:04d}"
         # publish atomically: write under a dot-prefixed temp name (invisible

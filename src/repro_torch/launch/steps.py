@@ -1,5 +1,6 @@
-"""The LM train step — the port of ``repro.launch.steps``'s
-``make_train_step`` and ``init_opt_state``.
+"""The step functions — the port of ``repro.launch.steps``: the LM train
+step and ``init_opt_state``, and the serving pair ``make_prefill_step`` /
+``make_serve_step``.
 
 The reference differentiates the loss with ``jax.value_and_grad`` inside
 ``jit``; here autograd runs eagerly on detached copies of the parameter
@@ -39,3 +40,19 @@ def make_train_step(cfg: ModelConfig, *, lr: float = 3e-4,
 
 def init_opt_state(params):
     return adamw_init(params)
+
+
+def make_prefill_step(cfg: ModelConfig, *, impl: str = "xla",
+                      cache_len: int | None = None):
+    def prefill_fn(params, batch):
+        return T.prefill_step(cfg, params, batch, impl=impl,
+                              cache_len=cache_len)
+    return prefill_fn
+
+
+def make_serve_step(cfg: ModelConfig):
+    """One decode step; it consumes the cache it is given (see
+    ``models.transformer.decode_step``)."""
+    def serve_step(params, cache, batch):
+        return T.decode_step(cfg, params, cache, batch)
+    return serve_step

@@ -1,8 +1,9 @@
-"""GQA attention for training — the port of ``repro.models.attention``:
-the chunked causal path (``impl="xla"``, O(chunk·S) scores, no S×S
-matrix) and the flash kernel (``impl="pallas"``: the hand-written Hopper
-kernel on the card, its plain version on the CPU), with qk-norm and
-M-RoPE in ``qkv_project``.  Decoding comes with the serving slice.
+"""GQA attention — the port of ``repro.models.attention``: for training
+and prefill the chunked causal path (``impl="xla"``, O(chunk·S) scores,
+no S×S matrix) and the flash kernel (``impl="pallas"``: the hand-written
+Hopper kernel on the card, its plain version on the CPU), with qk-norm
+and M-RoPE in ``qkv_project``; for decoding one token against a KV
+cache, a ring buffer of the window's size under a sliding window.
 """
 from __future__ import annotations
 
@@ -73,10 +74,23 @@ def causal_attention(cfg: ModelConfig, q, k, v, *, q_chunk: int = 512,
     return torch.cat(outs, dim=1)
 
 
+def decode_attention(cfg: ModelConfig, q, k_cache, v_cache, cache_len: int):
+    """q: (B,1,H,hd); caches: (B,S,KV,hd) with the new K/V already
+    written.  Cache slots at or beyond ``cache_len`` are masked."""
+    S = k_cache.shape[1]
+    scores = _gqa_scores(q, k_cache)                      # (B,KV,G,1,S)
+    pos = torch.arange(S, device=q.device)
+    zero = torch.zeros((), dtype=torch.float32, device=q.device)
+    bias = torch.where(pos < cache_len, zero, float("-inf"))
+    probs = torch.softmax(scores.float() + bias, dim=-1).to(q.dtype)
+    return _gqa_out(probs, v_cache)                       # (B,1,H,hd)
+
+
 def attention_block(cfg: ModelConfig, p, x, positions, *, impl: str = "xla",
-                    window: int = 0):
-    """The train attention sub-layer (no residual/norm), x: (B,S,d) ->
-    (B,S,d)."""
+                    window: int = 0, return_kv: bool = False):
+    """The train and prefill attention sub-layer (no residual/norm),
+    x: (B,S,d) -> (B,S,d); with ``return_kv`` also the (k, v) tensors that
+    fill the cache."""
     q, k, v = qkv_project(cfg, p, x, positions)
     if impl == "pallas":
         out = ops.flash_attention(q, k, v, causal=True,
@@ -84,4 +98,28 @@ def attention_block(cfg: ModelConfig, p, x, positions, *, impl: str = "xla",
     else:
         out = causal_attention(cfg, q, k, v, window=window)
     B, S = x.shape[:2]
-    return out.reshape(B, S, cfg.q_dim) @ p["wo"]
+    y = out.reshape(B, S, cfg.q_dim) @ p["wo"]
+    return (y, (k, v)) if return_kv else y
+
+
+def decode_attention_block(cfg: ModelConfig, p, x, cache, position: int, *,
+                           window: int = 0):
+    """One-token decode step.  x: (B,1,d); cache: {"k": (B,S,KV,hd),
+    "v": ...}; ``position`` is the absolute position of the new token.
+    Under a sliding window the cache is a ring buffer of size window: the
+    token lands at slot position % S.  The new K/V rows are written into
+    ``cache`` in place (a slice ``copy_``, no copy of the rest of
+    the cache), and the same dict is returned: the caller's cache is
+    consumed."""
+    B = x.shape[0]
+    position = int(position)
+    pos = torch.full((B, 1), position, dtype=torch.long, device=x.device)
+    q, k, v = qkv_project(cfg, p, x,
+                          pos.expand(3, B, 1) if cfg.mrope else pos)
+    S = cache["k"].shape[1]
+    slot = position % S                                       # ring buffer
+    cache["k"][:, slot:slot + 1].copy_(k)
+    cache["v"][:, slot:slot + 1].copy_(v)
+    out = decode_attention(cfg, q, cache["k"], cache["v"],
+                           min(position + 1, S))
+    return out.reshape(B, 1, cfg.q_dim) @ p["wo"], cache

@@ -68,6 +68,12 @@ class ModelConfig:
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.head_dim
 
+    @property
+    def effective_kv_heads(self) -> int:
+        """The KV heads a cache holds: every query head's under
+        ``expand_kv``."""
+        return self.num_heads if self.expand_kv else self.num_kv_heads
+
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 

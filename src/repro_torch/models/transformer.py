@@ -22,6 +22,14 @@ where an operation does not repeat its bits; the kernels inside a
 rematerialized region (the scans, the attention) launch once more per
 train step.
 
+Serving: ``prefill_step`` runs a whole prompt and returns the last
+token's logits with the cache (``init_cache``'s layout: one dict per
+layer-type stack, KV rings for the attention layers, conv and scan states
+for the recurrent ones); ``decode_step`` takes one token from there.  A
+decode step writes the new K/V rows and states into the cache in place
+and returns the same dict, where the reference returns a functional copy
+of the whole cache each token.
+
 Vocabulary sizes are padded to multiples of 256 (``vocab_padded``);
 labels never reference pad ids.
 """
@@ -30,10 +38,12 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint, noop_context_fn
 
-from .attention import attention_block
+import torch.nn.functional as F
+
+from .attention import attention_block, decode_attention_block
 from .common import ModelConfig
 from .layers import dense_init, rms_norm, swiglu
-from .mamba import mamba_block
+from .mamba import mamba_block, mamba_decode_step
 from .moe import moe_block
 from .rglru import recurrent_block
 
@@ -334,3 +344,173 @@ def loss_fn(cfg: ModelConfig, params, batch, *, impl: str = "xla",
             + 0.001 * aux.get("router_z", 0.0)
         metrics.update(aux)
     return loss, metrics
+
+
+# =================================================================== prefill
+def _cache_window(cfg: ModelConfig, t: str, S: int) -> int:
+    win = S
+    if t == "attn" and cfg.local_window:
+        win = min(win, cfg.local_window)
+    if cfg.sliding_window:
+        win = min(win, cfg.sliding_window)
+    return win
+
+
+def _kv_cache_slice(k, v, S: int, win: int):
+    """Cache of capacity ``win`` holding the last min(S, win) tokens, laid
+    out so the entry for absolute position p sits at ring slot p % win
+    (``decode_attention_block``'s invariant).  If S < win the cache is
+    padded with zeros."""
+    if win > S:
+        pad = (0, 0, 0, 0, 0, win - S)
+        return {"k": F.pad(k, pad), "v": F.pad(v, pad)}
+    k_t, v_t = k[:, S - win:], v[:, S - win:]
+    shift = S % win
+    if shift:
+        k_t = torch.roll(k_t, shift, dims=1)
+        v_t = torch.roll(v_t, shift, dims=1)
+    return {"k": k_t, "v": v_t}
+
+
+def _layer_body_prefill(cfg: ModelConfig, t: str, p, x, positions, impl: str,
+                        cache_len: int | None = None):
+    """One layer over a prompt -> (x, the layer's cache).  As in the
+    reference, ``impl`` reaches the attention (flash under "pallas") and
+    the mamba block, whose ``return_state`` takes the plain scan; the
+    Griffin block runs its plain recurrence whatever ``impl`` says."""
+    S = x.shape[1]
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    if t in ("attn_mlp", "attn", "moe"):
+        window = cfg.local_window if t == "attn" else cfg.sliding_window
+        y, (k, v) = attention_block(cfg, p, h, positions, impl=impl,
+                                    window=window, return_kv=True)
+        x = x + y
+        h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
+        if t == "moe":
+            y2, _ = moe_block(cfg, p, h2)
+        else:
+            y2 = swiglu(h2, p["w_gate"], p["w_up"], p["w_down"])
+        win = _cache_window(cfg, t, cache_len or S)
+        return x + y2, _kv_cache_slice(k, v, S, win)
+    if t == "ssm":
+        y, st = mamba_block(cfg, p, h, impl=impl, return_state=True)
+        return x + y, st
+    if t == "rec":
+        y, st = recurrent_block(cfg, p, h, return_state=True)
+        x = x + y
+        h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
+        return x + swiglu(h2, p["w_gate"], p["w_up"], p["w_down"]), st
+    raise ValueError(t)
+
+
+def _layer_order(cfg: ModelConfig) -> list:
+    """(type, index in its stack) of every layer in execution order: a
+    hybrid runs its super-blocks, then the layers of an incomplete last
+    one."""
+    types = cfg.layer_types()
+    used: dict = {}
+    order = []
+    for t in types:
+        order.append((t, used.get(t, 0)))
+        used[t] = used.get(t, 0) + 1
+    return order
+
+
+def prefill_step(cfg: ModelConfig, params, batch, *, impl: str = "xla",
+                 cache_len: int | None = None):
+    """Process a full prompt, returning (last-token logits (B, Vp) float32,
+    cache).  The cache layout matches ``init_cache`` / ``decode_step``, so
+    generation continues at position = prompt length.  Runs without
+    autograd."""
+    with torch.no_grad():
+        x, positions = embed_inputs(cfg, params, batch)
+        slices: dict = {}
+        for t, i in _layer_order(cfg):
+            x, csl = _layer_body_prefill(cfg, t, _layer(params, t, i), x,
+                                         positions, impl, cache_len)
+            slices.setdefault(t, []).append(csl)
+        cache = {f"stack_{t}": {k: torch.stack([c[k] for c in cs])
+                                for k in cs[0]}
+                 for t, cs in slices.items()}
+        h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return (h[:, -1, :] @ params["lm_head"]).float(), cache
+
+
+# ==================================================================== decode
+def init_cache(cfg: ModelConfig, batch_size: int, cache_len: int, *,
+               device="cuda") -> dict:
+    """A zero cache, stacked per layer-type stack.  ``cache_len`` is the
+    KV window actually materialized (sliding_window / local_window bound
+    it)."""
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    cache: dict = {}
+    for t, n in stack_counts(cfg).items():
+        if t in ("attn_mlp", "moe", "attn"):
+            win = _cache_window(cfg, t, cache_len)
+            shape = (n, batch_size, win, cfg.effective_kv_heads, cfg.head_dim)
+            cache[f"stack_{t}"] = {"k": zeros(shape, cfg.dtype),
+                                   "v": zeros(shape, cfg.dtype)}
+        elif t == "ssm":
+            cache["stack_ssm"] = {
+                "conv": zeros((n, batch_size, cfg.conv_width - 1,
+                               cfg.d_inner), cfg.dtype),
+                "h": zeros((n, batch_size, cfg.d_inner, cfg.ssm_state),
+                           torch.float32)}
+        elif t == "rec":
+            cache["stack_rec"] = {
+                "conv": zeros((n, batch_size, cfg.conv_width - 1,
+                               cfg.lru_width), cfg.dtype),
+                "h": zeros((n, batch_size, cfg.lru_width), torch.float32)}
+    return cache
+
+
+def _decode_layer(cfg: ModelConfig, t: str, p, x, cache_slice, position: int):
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    if t in ("attn_mlp", "attn", "moe"):
+        y, new_kv = decode_attention_block(
+            cfg, p, h, cache_slice, position,
+            window=cfg.local_window if t == "attn" else cfg.sliding_window)
+        x = x + y
+        h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
+        if t == "moe":
+            y2, _ = moe_block(cfg, p, h2)
+        else:
+            y2 = swiglu(h2, p["w_gate"], p["w_up"], p["w_down"])
+        return x + y2, new_kv
+    if t == "ssm":
+        y, new_state = mamba_decode_step(cfg, p, h, cache_slice)
+        return x + y, new_state
+    if t == "rec":
+        y, new_state = recurrent_block(cfg, p, h, state=cache_slice)
+        x = x + y
+        h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
+        return x + swiglu(h2, p["w_gate"], p["w_up"], p["w_down"]), new_state
+    raise ValueError(t)
+
+
+def decode_step(cfg: ModelConfig, params, cache, batch):
+    """One-token decode.  batch: {"tokens": (B,1) | "embeds": (B,1,d),
+    "position": int}.  Returns (logits (B, Vp) float32, cache).
+
+    The cache is consumed: each layer's new K/V row and recurrent states
+    are written into ``cache`` in place, and the same dict is returned
+    (the reference returns a new tree; a caller that needs the old cache
+    afterwards clones it first).  Runs without autograd."""
+    position = int(batch["position"])
+    with torch.no_grad():
+        if cfg.input_mode == "tokens":
+            x = params["embed"][batch["tokens"].long()]
+        else:
+            x = batch["embeds"].to(cfg.dtype)
+        for t, i in _layer_order(cfg):
+            stack = cache[f"stack_{t}"]
+            csl = {k: v[i] for k, v in stack.items()}
+            x, new = _decode_layer(cfg, t, _layer(params, t, i), x, csl,
+                                   position)
+            if new is not csl:          # recurrent states: new tensors
+                for k, v in new.items():
+                    stack[k][i].copy_(v)
+        h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return (h[:, 0, :] @ params["lm_head"]).float(), cache

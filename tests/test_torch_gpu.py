@@ -739,3 +739,63 @@ def test_faulted_four_host_run_on_card_equals_the_unfaulted_one():
     assert k_calls == w_calls > 0
     (kill,) = killed.meta["elastic_events"][0]["events"]
     assert kill["lanes"][0]["reread_examples"] == kill["lanes"][0]["window"]
+
+
+# ------------------------------------------------------------------ serving
+def _serve_tokens(cfg, B, S, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))).cuda()
+
+
+def _rel(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+@pytest.mark.parametrize("arch,kw", [
+    ("falcon-mamba-7b", {}), ("qwen3-0.6b", {}),
+    ("granite-moe-1b-a400m", {"capacity_factor": 8.0})])
+def test_decode_against_prefill_at_full_width(arch, kw):
+    """One full-width layer in float32: a decode step from a prefill of 64
+    tokens against the last logits of a prefill of 65, at the reference
+    test's exactness bound (1e-4 relative; tests/test_serving.py)."""
+    _need_card()
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    cfg = configs.get(arch).with_(num_layers=1, dtype=torch.float32, **kw)
+    params = T.init_params(cfg, 0, device="cuda")
+    tok = _serve_tokens(cfg, 2, 65, 3)
+    ref, _ = T.prefill_step(cfg, params, {"tokens": tok}, cache_len=72)
+    _, cache = T.prefill_step(cfg, params, {"tokens": tok[:, :64]},
+                              cache_len=72)
+    dec, _ = T.decode_step(cfg, params, cache,
+                           {"tokens": tok[:, 64:], "position": 64})
+    assert _rel(dec, ref) < 1e-4
+
+
+def test_pallas_prefill_launches_and_ring_at_full_width():
+    """recurrentgemma-9b, one super-block at full width, prompts past the
+    2,048 local window: a pallas prefill launches B2 once and B4 never
+    (the reference's prefill runs the Griffin block's plain loop); its
+    logits within 0.03 of the xla prefill's; a decode step on the wrapped
+    ring within 0.03 of a prefill of one more token."""
+    _need_card()
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    cfg = configs.get("recurrentgemma-9b").with_(num_layers=3)
+    params = T.init_params(cfg, 0, device="cuda")
+    tok = _serve_tokens(cfg, 1, 2561, 4)
+    ops.reset_calls()
+    lp, _ = T.prefill_step(cfg, params, {"tokens": tok[:, :2560]},
+                           impl="pallas", cache_len=2600)
+    assert dict(ops.CALLS) == {"flash_attention": 1}
+    ops.reset_calls()
+    lx, cache = T.prefill_step(cfg, params, {"tokens": tok[:, :2560]},
+                               cache_len=2600)
+    assert not ops.CALLS
+    assert cache["stack_attn"]["k"].shape[2] == 2048
+    assert _rel(lp, lx) < 0.03
+    ref, _ = T.prefill_step(cfg, params, {"tokens": tok}, impl="pallas",
+                            cache_len=2600)
+    dec, _ = T.decode_step(cfg, params, cache,
+                           {"tokens": tok[:, 2560:], "position": 2560})
+    assert _rel(dec, ref) < 0.03

@@ -46,6 +46,16 @@ TRANSFORMER_MODULES = [
     "llama4_scout_17b_a16e")]
 
 
+# serving (prefill and decode, the closed loop) and the telemetry core
+SERVE_MODULES = [
+    "repro_torch.serve", "repro_torch.serve.ingest",
+    "repro_torch.serve.policy", "repro_torch.serve.swap",
+    "repro_torch.serve.loop", "repro_torch.launch.serve",
+    "repro_torch.obs", "repro_torch.obs.events", "repro_torch.obs.metrics",
+    "repro_torch.obs.report",
+]
+
+
 def test_every_module_imports_with_jax_and_repro_blocked():
     code = (
         "import sys, importlib, pkgutil, json\n"
@@ -69,6 +79,7 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     assert set(CONVEX_MODULES) <= set(names)
     assert set(DIST_MODULES) <= set(names)
     assert set(TRANSFORMER_MODULES) <= set(names)
+    assert set(SERVE_MODULES) <= set(names)
     assert out.stdout.count("\n") == 1         # no module printed a thing
 
 

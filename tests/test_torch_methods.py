@@ -354,12 +354,12 @@ def test_run_method_set_matches_reference():
 
 
 def test_every_registered_name_builds_and_runs():
-    """The registries hold the reference's names (``traffic_driven``, the
-    serve slice's, stays pending) and each builds through build(RunSpec)."""
+    """The registries hold the reference's names (``traffic_driven`` since
+    the serve slice, none pending) and each builds through
+    build(RunSpec)."""
     assert set(P.OPTIMIZERS.names()) == set(R.registry.OPTIMIZERS.names())
-    assert set(P.POLICIES.names()) | {"traffic_driven"} == \
-        set(R.registry.POLICIES.names())
-    assert set(P.POLICIES.pending) == {"traffic_driven"}
+    assert set(P.POLICIES.names()) == set(R.registry.POLICIES.names())
+    assert not P.POLICIES.pending
     assert not P.OPTIMIZERS.pending
     data = P.DataSpec(dataset="w8a_like", scale=0.02, lam=1e-3)
     for name in P.OPTIMIZERS.names():

@@ -57,10 +57,11 @@ LM = dict(data=R.DataSpec(kind="lm"),
     # once refused as the moe slice's; the moe family now builds it
     (dict(LM, model=R.ModelSpec(arch="granite-moe-1b-a400m", reduced=True)),
      None),
-    # the plane, checkpoints, multiple hosts and the elastic runtime are
-    # ported: what stays refused is the tiered corpus, observability (the
-    # fleet recorder of a multi-host run too), and serving, also of an
-    # elastic multi-host run or an LM on the plane
+    # the plane, checkpoints, multiple hosts, the elastic runtime and
+    # serving are ported: what stays refused is the tiered corpus and
+    # observability (the fleet recorder of a multi-host run too); a serve
+    # spec, also of an elastic multi-host run or an LM on the plane, is
+    # refused by build as the reference refuses it, pointing at build_loop
     (dict(data=R.DataSpec(plane="plane", tiering=R.TieringSpec(
         enabled=True, hbm_bytes=1))), "tiered-corpus slice"),
     (dict(data=R.DataSpec(plane="plane"), topology=R.TopologySpec(hosts=2),
@@ -69,18 +70,20 @@ LM = dict(data=R.DataSpec(kind="lm"),
      "tiered-corpus slice"),
     (dict(data=R.DataSpec(plane="plane"), topology=R.TopologySpec(hosts=4),
           elastic=R.ElasticSpec(enabled=True),
-          serve=R.ServeSpec(enabled=True)), "serve slice"),
+          serve=R.ServeSpec(enabled=True)), "build_loop"),
     (dict(checkpoint=R.CheckpointSpec(directory="ck"),
           topology=R.TopologySpec(hosts=2), data=R.DataSpec(
               plane="plane", tiering=R.TieringSpec(enabled=True,
                                                    hbm_bytes=1))),
      "tiered-corpus slice"),
     (dict(obs=R.ObsSpec(enabled=True)), "observability slice"),
-    (dict(serve=R.ServeSpec(enabled=True)), "serve slice"),
+    (dict(serve=R.ServeSpec(enabled=True)), "build_loop"),
     (dict(LM, data=R.DataSpec(kind="lm", plane="plane"),
           model=R.ModelSpec(arch="falcon-mamba-7b"),
-          serve=R.ServeSpec(enabled=True)), "serve slice"),
-    (dict(policy=R.PolicySpec("traffic_driven")), "serve slice"),
+          serve=R.ServeSpec(enabled=True)), "build_loop"),
+    # traffic_driven is registered now; observed, it still waits
+    (dict(policy=R.PolicySpec("traffic_driven"),
+          obs=R.ObsSpec(enabled=True)), "observability slice"),
     # one torch.distributed process per host: refused before any process
     # group is asked for, convex and LM alike
     (dict(data=R.DataSpec(plane="plane"),
@@ -97,6 +100,15 @@ def test_unported_branches_raise_spec_error(change, needle):
         sess = P.build(spec, device="cpu")
         assert sess.model_config.family == "moe"
         sess.close()
+        return
+    if needle == "build_loop":
+        # the reference's own refusal, in both packages, naming the front
+        # door that builds a serve spec
+        with pytest.raises(R.SpecError, match="repro.serve.build_loop"):
+            R.build(R.RunSpec.from_json(spec.to_json()))
+        with pytest.raises(P.SpecError,
+                           match="repro_torch.serve.build_loop"):
+            P.build(spec, device="cpu")
         return
     with pytest.raises(P.SpecError, match="not yet ported") as e:
         P.build(spec, device="cpu")

@@ -327,34 +327,42 @@ def test_dist_lm_phase_specs_validate():
         assert full <= spec.schedule.n0
 
 
-def test_presets_phase_holds_the_claims_on_the_cpu(monkeypatch):
-    """chip_smoke.py's preset phase on the CPU, with the kernel wrappers
-    counting their calls where the card's launches are counted: the
-    presets are BENCH_workloads.json's without serve or obs, each with
-    every claim of the reference sweep (the mamba and rglru presets
-    kernel-routed); the serve and obs presets refused naming A11."""
-    import json
-    from repro_torch import workloads
+def _count_kernel_calls(monkeypatch):
+    """The kernel wrappers count their calls where the card counts its
+    launches (on the CPU they serve the plain versions uncounted)."""
     for name in ("ssm_scan", "rglru_scan", "flash_attention"):
         def counted(*a, real=getattr(tops, name), name=name, **kw):
             tops.CALLS[name] += 1
             return real(*a, **kw)
         monkeypatch.setattr(tops, name, counted)
+
+
+def test_presets_phase_holds_the_claims_on_the_cpu(monkeypatch, tmp_path):
+    """chip_smoke.py's preset phase on the CPU, with the kernel wrappers
+    counting their calls where the card's launches are counted: the
+    presets are BENCH_workloads.json's, each with every claim of the
+    reference sweep (the mamba and rglru presets kernel-routed, the serve
+    preset's closed loop too); the obs preset refused naming A11."""
+    import json
+    from repro_torch import workloads
+    _count_kernel_calls(monkeypatch)
     monkeypatch.setattr(chip_smoke, "FAILED", [])
     bench = json.loads((Path(chip_smoke.__file__).parent
                         / "BENCH_workloads.json").read_text())
     names = [p["name"] for p in bench["presets"]]
     assert list(chip_smoke.BENCH_PRESETS) == [
         n for n in names if "serve" not in n and "obs" not in n]
-    assert set(chip_smoke.REFUSED_PRESETS) == set(names) - set(
-        chip_smoke.BENCH_PRESETS)
+    assert set(chip_smoke.SERVE_PRESETS) | set(chip_smoke.REFUSED_PRESETS) \
+        == set(names) - set(chip_smoke.BENCH_PRESETS)
     rows = chip_smoke.presets_phase(
-        torch, {"api": P, "ops": tops, "workloads": workloads}, device="cpu")
+        torch, {"api": P, "ops": tops, "workloads": workloads,
+                "build_dir": tmp_path}, device="cpu")
     assert chip_smoke.FAILED == []
-    assert [r["name"] for r in rows] == list(chip_smoke.BENCH_PRESETS)
+    assert [r["name"] for r in rows] == list(
+        chip_smoke.BENCH_PRESETS + chip_smoke.SERVE_PRESETS)
     routed = [r["name"] for r in rows if "kernel_routed" in r["claims"]]
     assert routed == ["falcon-mamba@2stages", "falcon-mamba@stream",
-                      "recurrentgemma@2stages"]
+                      "recurrentgemma@2stages", "recurrentgemma@serve"]
 
 
 def test_transformer_phases_run_small_on_the_cpu(monkeypatch):
@@ -405,3 +413,58 @@ def test_transformer_phases_run_small_on_the_cpu(monkeypatch):
     assert moe["recompute_regions"] == 2 + 1     # 2 layers, 1 loss chunk
     assert [r["arch"] for r in rows] == list(chip_smoke.ZOO)
     assert rows[-1]["mrope"] and rows[-1]["input_mode"] == "embeddings"
+
+
+def _serve_rt(tmp_path):
+    from repro_torch import configs, serve
+    from repro_torch.launch import serve as launch_serve
+    return {"api": P, "ops": tops, "transformer": TT, "configs": configs,
+            "serve": launch_serve, "serve_pkg": serve,
+            "tree_map": tree_map, "tree_leaves": tree_leaves,
+            "build_dir": tmp_path}
+
+
+def test_serving_phase_runs_small_on_the_cpu(monkeypatch, tmp_path):
+    """chip_smoke.py's 3l on the reduced configs: the hybrid's pallas
+    prefill calls B2 once and B4 never, the decode steps none, the logits
+    within their bounds; generate deterministic; decode against prefill
+    for one layer of falcon-mamba-7b and granite-moe-1b-a400m."""
+    _count_kernel_calls(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "FAILED", [])
+    out = chip_smoke.serving_phase(torch, _serve_rt(tmp_path), device="cpu",
+                                   reduced=True)
+    assert chip_smoke.FAILED == []
+    hybrid = out["hybrid"]
+    assert hybrid["launches_pallas_128"] == {"flash_attention": 1}
+    assert hybrid["launches_xla_128"] == {} == hybrid["launches_decode"]
+    assert hybrid["ring_slots"] == 64           # the reduced local window
+    assert out["generate"]["deterministic"]
+    assert [r["arch"] for r in out["layers"]] == [
+        "falcon-mamba-7b", "granite-moe-1b-a400m"]
+
+
+def test_serve_loop_phases_run_small_on_the_cpu(monkeypatch, tmp_path):
+    """chip_smoke.py's 3m on reduced falcon-mamba-7b (B3 called 3 x layers
+    x steps, every claim that needs no A/B) and 3m' on a smaller setting
+    (every claim but the timing of throughput under swap); and the
+    serving card-vs-CPU phase with the CPU standing in for the card."""
+    _count_kernel_calls(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "FAILED", [])
+    rt = _serve_rt(tmp_path)
+    small = dict(chip_smoke.SERVE_LOOP, reduced=True, layers=None,
+                 capacity=64, seq_len=32, prompt=16, n0=16, shard=8,
+                 eval_rows=8, batch=4)
+    row = chip_smoke.serve_loop_phase(torch, rt, small, device="cpu")
+    assert chip_smoke.FAILED == []
+    assert row["launches"] == row["launches_implied"] == {
+        "ssm_scan": 3 * 2 * row["steps"]}
+    assert row["stages"] >= 3 and row["claims"]["resume_bit_compatible"]
+    ab = chip_smoke.serve_ab_phase(
+        torch, rt, dict(chip_smoke.SERVE_BENCH, capacity=64), device="cpu")
+    assert all(v for k, v in ab["claims"].items()
+               if k != "throughput_under_swap"), ab["claims"]
+    assert all(m.startswith("serve A/B") for m in chip_smoke.FAILED)
+    monkeypatch.setattr(chip_smoke, "FAILED", [])
+    cmp = chip_smoke.serve_card_vs_cpu_phase(torch, rt, card="cpu")
+    assert chip_smoke.FAILED == []
+    assert cmp["loop_columns_equal"] and cmp["loop_tokens_equal"]
