@@ -26,7 +26,9 @@ the script with a non-zero exit and no result line:
     after:
     a. convex: the quickstart spec (examples/quickstart.py) at scale 6,
        two-track then batch; linear_value_grad launches exactly once per
-       optimizer step the traces and the race overshoot imply;
+       optimizer step the traces imply (the race's WHILE graph counts its
+       replays); one pull a stage; the WHILE graph launched once a racing
+       stage;
     a'. the convex method set on the same problem, each run a path of its
        own: two-track with nonlinear CG, L-BFGS and AdamW; the
        gradient-variance policy, alone and as a veto of two-track
@@ -37,11 +39,11 @@ the script with a non-zero exit and no result line:
        (``repro_torch.launch.methods``) on its six fixtures;
     b. LM: falcon-mamba-7b at its full published width, depth cut to 4
        layers, two-track (launch/train.py's spec); ssm_scan launches
-       num_layers times per forward pass the trace and the race
-       overshoot imply (a train step is two: its forward and the
-       rematerialization in its backward); at most ⌈log₂ s⌉ host
-       transfers per racing stage of s steps; f̂ on the eval probe falls;
-       one line per stage;
+       num_layers times per forward pass the trace implies (a train step
+       is two: its forward and the rematerialization in its backward);
+       one host transfer a stage, each racing stage captured into a WHILE
+       graph (its capture seconds); f̂ on the eval probe falls; one line
+       per stage;
     c. hybrid LM: recurrentgemma-9b at its full published width, depth
        cut to one (rec, rec, attn) super-block, under fixed_steps
        (launch/train.py's default schedule) on sequences of 4,096 tokens,
@@ -121,11 +123,11 @@ no kernel, as in the reference), each check failing the run at its end:
     yi-9b, stablelm-12b, musicgen-medium, llama4-scout-17b-a16e,
     qwen2-vl-2b with random embeds and M-RoPE positions): loss_fn and its
     gradients at 1 x 512, finite, with ms and peak memory.
- 3k. BENCH_workloads.json's nine presets without serve or obs through
-    ``repro_torch.api.run(name, device="cuda")``, each with the reference
-    sweep's claims (the mamba and rglru presets kernel-routed); the serve
-    preset through ``api.run`` too (its closed loop, B4 and B2 launched by
-    its training); the obs preset refused, naming its slice.
+ 3k. BENCH_workloads.json's eleven presets through the port's sweep
+    (``repro_torch.workloads.sweep``, each observed in a temporary
+    directory), each with the reference sweep's claims (the mamba and
+    rglru presets kernel-routed, the serve preset's closed loop and the
+    obs preset among them); ``matrix_green`` must hold.
  4 also holds the reduced qwen3-0.6b and granite-moe-1b-a400m to the CPU.
 
 Serving (``models/transformer.py``'s prefill and decode, ``repro_torch.
@@ -152,10 +154,29 @@ serve``), each check failing the run at its end:
  4 also holds the reduced hybrid's prefill and decode logits, and a
     reduced closed loop's counts and logged tokens, to the CPU.
 
-Then the ``{"kernels": [...]}`` line, and last ``{"ok": true, ...}``.
+The race on the device and observability (C4, A11), right after 3a:
+ 3n. quickstart@6 two-track (3a's run) against the same run with the
+    plain loop on the card (bitwise: trace, final w, trigger steps) and
+    against the CPU (columns equal, f̂ within 1e-4); its longest racing
+    stage alone, the WHILE graph's launch against the plain loop from the
+    same carry (CUDA events, max_abs_err, capture ms, the loop's bound);
+    BENCH_engine.json's ``engine_max_one_transfer_per_stage`` at its own
+    setting (fig3 webspam_like at scale 0.25; bet_fixed, two-track,
+    batch).  3e and 3i add one pull a stage over 4 hosts and for qwen3.
+ 3o. quickstart@6 two-track on the plane under ObsSpec(enabled, dir,
+    chrome_trace, profile, health): the RunReport's claims all true, the
+    run bitwise the unobserved one, one ``profile.stage`` a stage (FLOPs,
+    bytes, roofline seconds at the H100's peaks) beside the stage's
+    compute seconds; BENCH_dist.json's setting under fleet and health obs
+    at 4 hosts: a lane file a host, the merged trace causal at every
+    barrier, health's detections.  Each new phase prints its seconds.
+
+Then the ``{"kernels": [...]}`` line (B1–B4 and the WHILE graph), and
+last ``{"ok": true, ...}``.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import gc
 import json
@@ -741,10 +762,13 @@ def main_path_phase(torch, rt) -> int:
         torch.cuda.synchronize()
         walls[name] = time.perf_counter() - t0
     launches = dict(ops.CALLS)
-    # two launches per race step (the steps run past a trigger and
-    # discarded included), one per final-phase and batch step
+    # two launches per race step, one per final-phase and batch step (the
+    # race stops at its trigger: no step runs past it)
     overshoot = sum(tr.meta["race_overshoot"] for tr in traces.values())
     implied = sum(rt["methods"].kernel_calls(tr) for tr in traces.values())
+    rt["main_two_track"] = {"session": sessions["two_track"],
+                            "trace": traces["two_track"],
+                            "wall_s": walls["two_track"]}
     for name, sess in sessions.items():
         tr = traces[name]
         row = {"run": name, "stages": tr.meta["stages"],
@@ -765,9 +789,16 @@ def main_path_phase(torch, rt) -> int:
             row["transfers_per_stage"] = [
                 b["transfers"] - a["transfers"]
                 for a, b in zip([{"transfers": 0}] + ends, ends)]
+            row["capture_s"] = list(sess.engine.race_capture_s)
         emit(row)
         if not finite(tr):
             raise SystemExit(f"{name}: non-finite values in the trace")
+        if tr.meta["host_transfers"] != tr.meta["stages"] or \
+                tr.meta["race_overshoot"]:
+            raise SystemExit(f"{name}: {tr.meta['host_transfers']} pulls "
+                             f"over {tr.meta['stages']} stages, overshoot "
+                             f"{tr.meta['race_overshoot']}: the race must "
+                             f"pull once a stage")
     planned = sorted({i.n_t for i in sessions["two_track"].stage_plan()})
     reached = sorted(set(traces["two_track"].column("window")))
     if reached != planned:
@@ -779,6 +810,12 @@ def main_path_phase(torch, rt) -> int:
         raise SystemExit(f"linear_value_grad launched "
                          f"{launches.get('linear_value_grad', 0)} times, the "
                          f"traces imply {implied} optimizer steps")
+    racing = traces["two_track"].meta["stages"] - 1
+    if launches.get("device_while", 0) != racing:
+        raise SystemExit(f"the race's WHILE graph launched "
+                         f"{launches.get('device_while', 0)} times over "
+                         f"{racing} racing stages")
+    rt["main_two_track"]["device_while"] = launches["device_while"]
     return launches["linear_value_grad"]
 
 
@@ -1014,11 +1051,13 @@ def lm_main_path_phase(torch, rt) -> dict:
     # and f̂ of the slow one, plus f̂_t of the slow one under "eval"; a
     # final step: a train step, plus f̂ when final_eval_full.  A train
     # step is two forward passes: its own and, in its backward, the
-    # rematerialization of every layer
+    # rematerialization of every layer.  The race stops at its trigger
+    # (overshoot 0), and the WHILE graph's replays are counted by
+    # ops.finish_race_loop
     race_evals = 3 if pol.condition == "eval" else 2
     final_evals = 1 if pol.final_eval_full else 0
-    train_steps = 2 * (race + overshoot) + final
-    evals = race_evals * (race + overshoot) + final_evals * final
+    train_steps = 2 * race + final
+    evals = race_evals * race + final_evals * final
     implied = cfg.num_layers * (2 * train_steps + evals)
     values = (tr.column("f_window") + tr.column("f_full")
               + [p.extra["f_fast_on_t"] for p in tr.points
@@ -1026,6 +1065,8 @@ def lm_main_path_phase(torch, rt) -> dict:
     summary = {"path": "lm", "stages": tr.meta["stages"],
                "race_steps": race, "final_steps": final,
                "race_overshoot": overshoot,
+               "capture_s": list(sess.engine.race_capture_s),
+               "captures": sum(c > 0 for c in sess.engine.race_capture_s),
                "host_transfers": tr.meta["host_transfers"],
                "transfers_per_stage": [r["host_transfers"] for r in rows],
                "train_steps": train_steps, "objective_evals": evals,
@@ -1044,12 +1085,11 @@ def lm_main_path_phase(torch, rt) -> dict:
     if launches.get("ssm_scan", 0) != implied:
         raise SystemExit(f"ssm_scan launched {launches.get('ssm_scan', 0)} "
                          f"times, the trace implies {implied}")
-    # the race pulls once per chunk (cumulative sizes 2, 4, 8, ...)
+    # the race pulls once a racing stage, as the reference's while loop
     for r in rows:
-        if r["racing"] and r["host_transfers"] > \
-                math.ceil(math.log2(max(2, r["steps"]))):
-            raise SystemExit(f"racing stage {r['stage']} of {r['steps']} "
-                             f"steps took {r['host_transfers']} transfers")
+        if r["host_transfers"] != 1:
+            raise SystemExit(f"stage {r['stage']} of {r['steps']} steps "
+                             f"took {r['host_transfers']} transfers")
     lm_step_breakdown(torch, rt, sess, tr.params)
     del sess, tr
     gc.collect()
@@ -1819,18 +1859,16 @@ def lanes_at(sess, n: int) -> int:
 def dist_kernel_calls(sess, tr) -> int:
     """The B1 launches a distributed convex run's trace implies: per step,
     one per non-empty lane of its window, and a race step's fast track one
-    per non-empty lane of the previous window; the steps run past a
-    trigger and discarded count likewise (the stage's overshoot)."""
+    per non-empty lane of the previous window (the race stops at its
+    trigger; the WHILE graph's replays are counted)."""
     plan = {i.stage: i for i in sess.stage_plan()}
-    total, prev = 0, 0
+    total = 0
     for end in sess.stage_ends:
         info = plan[end["stage"]]
         pts = [p for p in tr.points if p.stage == info.stage]
         race = sum("f_fast_on_t" in p.extra for p in pts)
-        over = end["overshoot"] - prev
-        prev = end["overshoot"]
-        total += (len(pts) + over) * lanes_at(sess, info.n_t) \
-            + (race + over) * lanes_at(sess, info.n_prev)
+        total += len(pts) * lanes_at(sess, info.n_t) \
+            + race * lanes_at(sess, info.n_prev)
     return total
 
 
@@ -1973,6 +2011,7 @@ def dist_convex_phase(torch, rt, scale: float = 6.0) -> int:
         "two_track", {"final_steps": 20}), topology=topo,
         **dict(base, data=data.replace(plane="plane")))
     sess, tr, launches, wall = timed_build_run(torch, rt, spec)
+    rt["dist_while"] = rt["ops"].CALLS.get("device_while", 0)
     implied = dist_kernel_calls(sess, tr)
     row = dist_claims("dist quickstart@6", sess, tr)
     cpu = api.build(spec, device="cpu").run()
@@ -1990,6 +2029,14 @@ def dist_convex_phase(torch, rt, scale: float = 6.0) -> int:
     if launches != implied:
         fail_later(f"dist quickstart@6: B1 launched {launches} times, the "
                    f"trace and lane counts imply {implied}")
+    pulls = [b["transfers"] - a["transfers"] for a, b in
+             zip([{"transfers": 0}] + sess.stage_ends, sess.stage_ends)]
+    emit({"path": "dist_convex", "run": "quickstart@6",
+          "transfers_per_stage": pulls,
+          "capture_s": list(sess.engine.race_capture_s)})
+    if set(pulls) != {1}:
+        fail_later(f"dist quickstart@6: pulls per stage {pulls}, not one "
+                   f"a racing stage")
     lane_times(torch, rt, sess, data)
     if differ or not card_vs_cpu <= RTOL_F:
         fail_later(f"dist quickstart@6: card and CPU differ (columns "
@@ -2282,18 +2329,6 @@ TF_FIXED = (8, 8)
 ZOO = ("internlm2-1.8b", "yi-9b", "stablelm-12b", "musicgen-medium",
        "llama4-scout-17b-a16e", "qwen2-vl-2b")
 ZOO_BATCH, ZOO_SEQ = 1, 512
-# BENCH_workloads.json's presets that use neither serve nor obs, run
-# through repro_torch.api.run; the serve preset through api.run too (its
-# closed loop, with the checkpoints in a temporary directory); the obs
-# preset waits for its slice (A11)
-BENCH_PRESETS = ("qwen3@2stages", "internlm2@2hosts", "stablelm@stream",
-                 "falcon-mamba@2stages", "falcon-mamba@stream",
-                 "recurrentgemma@2stages", "granite-moe@2stages",
-                 "granite-moe@4hosts-elastic", "llama4-scout@2stages")
-SERVE_PRESETS = ("recurrentgemma@serve",)
-REFUSED_PRESETS = ("yi@3stages-obs",)
-
-
 def transformer_main_path_phase(torch, rt, arch: str, policy: str) -> dict:
     """A transformer or moe main path at full width and depth: one line
     per stage, the run's peak memory, no launch of any kernel (the
@@ -2341,6 +2376,8 @@ def transformer_main_path_phase(torch, rt, arch: str, policy: str) -> dict:
                "race_overshoot": tr.meta.get("race_overshoot", 0),
                "host_transfers": tr.meta["host_transfers"],
                "transfers_per_stage": [r["host_transfers"] for r in rows],
+               "capture_s": list(sess.engine.race_capture_s),
+               "captures": sum(c > 0 for c in sess.engine.race_capture_s),
                "launches": launches, "wall_s": wall,
                "wall_s_per_step": wall / len(tr.points),
                "peak_memory_gb": peak / 1e9,
@@ -2351,9 +2388,12 @@ def transformer_main_path_phase(torch, rt, arch: str, policy: str) -> dict:
     emit(summary)
     if not all(math.isfinite(v) for v in values):
         fail_later(f"{cfg.name}: non-finite loss in the trace")
-    if any(launches.values()):
+    if any(v for k, v in launches.items() if k != "device_while"):
         fail_later(f"{cfg.name}: the {family.name} family launched "
                    f"kernels {launches}")
+    if any(r["host_transfers"] != 1 for r in rows):
+        fail_later(f"{cfg.name}: pulls per stage "
+                   f"{[r['host_transfers'] for r in rows]}, not one")
     params = tr.params
     sess.w0 = None
     del tr
@@ -2444,86 +2484,365 @@ def zoo_phase(torch, rt, device: str = "cuda") -> list:
     return rows
 
 
-def preset_result(preset, families, sess, calls: dict) -> dict:
-    """A finished preset run's evidence, as the reference's sweep
-    computes it from the trace (``repro/workloads/sweep.py``):
-    ``builds``, ``trained_ge_2_stages``, ``le_one_transfer_per_stage``,
-    ``loss_finite`` and, for a family that declares kernels, whether each
-    launched (``calls``: the kernels' counts over the run).  A serve
-    preset's ``sess`` is its finished loop: a held stage flushes once a
-    held chunk, so its transfer budget is stages + holds, and its
-    RunReport adds ``zero_resident_reupload``, as in the sweep."""
-    tr = sess.trace
-    report = getattr(sess, "run_report", None)
-    holds = report.serve_summary()["holds"] if report is not None else 0
-    stages = int(tr.meta.get("stages", 0))
-    transfers = int(tr.meta.get("host_transfers", 0))
-    final = None
-    for p in reversed(tr.points):
-        for v in (p.f_full, p.f_window):
-            if v is not None:
-                final = float(v)
-                break
-        if final is not None:
-            break
-    claims = {"builds": True, "trained_ge_2_stages": stages >= 2,
-              "le_one_transfer_per_stage": transfers <= stages + holds,
-              "loss_finite": final is not None and math.isfinite(final)}
-    fam = families[preset.family]
-    if fam.kernels:
-        claims["kernel_routed"] = all(calls.get(k, 0) > 0
-                                      for k in fam.kernels)
-    if report is not None:
-        claims["zero_resident_reupload"] = \
-            report.claims()["zero_resident_reupload"]
-    return {"claims": claims, "stages": stages, "transfers": transfers,
-            "final_loss": final}
+# the race on the device (C4).  BENCH_engine.json's setting
+# (benchmarks/bench_engine.py): fig3 webspam_like at scale 0.25, n0
+# max(128, min(d, n // 8)), bet_fixed (5 inner, 25 final steps), two-track
+# (25 final) and batch (30 steps); its engine-side claim is at most one
+# pull a stage in every run
+ENGINE_DATA, ENGINE_SCALE = "webspam_like", 0.25
+WHILE_REPS = 10
 
 
-def presets_phase(torch, rt, device: str = "cuda") -> list:
-    """BENCH_workloads.json's presets through ``api.run``, each with the
-    reference sweep's claims, which must all hold: the nine without serve
-    or obs by name, the serve preset's spec with its checkpoint directory
-    moved to a temporary one (``api.run`` routes it to ``build_loop``);
-    the obs preset must be refused, naming its slice."""
-    api, ops, wl = rt["api"], rt["ops"], rt["workloads"]
-    rows = []
+def plain_race_loop(ops, ref):
+    """``ops.race_loop`` by its plain route on any device: the eager loop,
+    one host read a step."""
+    def loop(step, carry, hist, s, done, max_iters, keep=()):
+        return ops._PlainLoop(ref.race_loop(step, carry, hist, s, done,
+                                            max_iters))
+    return loop
+
+
+def while_graph_phase(torch, rt) -> dict:
+    """The race's WHILE graph on the card (C4).  (1) quickstart@6 two-track
+    (the main path's run, 3a) against the same run with the plain loop on
+    the card: the trace and final w bitwise, the trigger steps a stage
+    equal, one pull a stage; and against the CPU: the columns equal, f̂
+    within RTOL_F.  (2) its longest racing stage alone: the WHILE graph's
+    launch timed with CUDA events against the plain loop from the same
+    carry, their histories and carries compared (max_abs_err), the
+    capture time, and the loop's bound (the steps' operations, counted by
+    ``obs.profile`` on meta tensors, at the float32 peak; the inputs read
+    once and the carries written once).  (3) BENCH_engine.json's
+    ``engine_max_one_transfer_per_stage`` at its own setting."""
+    from repro_torch.core.engine import race_step_fns
+    from repro_torch.obs import profile
+    api, ops, ref = rt["api"], rt["ops"], rt["ref"]
+    main = rt["main_two_track"]
+    t_phase = time.perf_counter()
+    graph_tr, graph_sess = main["trace"], main["session"]
+    spec = graph_sess.spec
+    real = ops.race_loop
+    ops.race_loop = plain_race_loop(ops, ref)
+    try:
+        eager_sess = api.build(spec, device="cuda")
+        ends = {}
+        record = eager_sess.engine.stage_callback
+        eager_sess.engine.stage_callback = lambda e: (
+            ends.__setitem__(e.info.stage, e.params.clone()), record(e))
+        t0 = time.perf_counter()
+        eager = eager_sess.run()
+        torch.cuda.synchronize()
+        eager_wall = time.perf_counter() - t0
+    finally:
+        ops.race_loop = real
+    differ = bitwise_diff(run_record(graph_tr), run_record(eager))
+    if not torch.equal(graph_tr.params, eager.params):
+        differ.append("params")
+    cpu = api.build(spec, device="cpu").run()
+    cpu_cols = [c for c in ("step", "stage", "window", "time", "accesses")
+                if cpu.column(c) != graph_tr.column(c)]
+    rel = traj_dev(graph_tr, cpu)
+    stages = graph_tr.column("stage")
+    steps = [stages.count(k) for k in sorted(set(stages))]
+    row = {"path": "race", "run": "quickstart@6 two_track",
+           "stages": graph_tr.meta["stages"],
+           "host_transfers": graph_tr.meta["host_transfers"],
+           "steps_per_stage": steps,
+           "eager_steps_per_stage": [eager.column("stage").count(k)
+                                     for k in sorted(set(stages))],
+           "graph_differs_from_eager_loop": differ,
+           "graph_wall_s": main["wall_s"], "eager_loop_wall_s": eager_wall,
+           "capture_s": list(graph_sess.engine.race_capture_s),
+           "cpu_columns_differ": cpu_cols, "card_vs_cpu_max_rel": rel}
+    emit(row)
+    if differ or cpu_cols or not rel <= RTOL_F or \
+            graph_tr.meta["host_transfers"] != graph_tr.meta["stages"]:
+        fail_later(f"race on the card: {row}")
+
+    # (2) the longest racing stage, graph against plain loop, timed: it
+    # starts from the previous stage's final w (the run's w0 for stage 1)
+    # and fresh optimizer states
+    stage = max(range(1, len(steps)), key=lambda k: steps[k - 1])
+    info = {i.stage: i for i in eager_sess.stage_plan()}[stage]
+    w = eager_sess.w0 if stage == 1 else ends[stage - 1]
+    ds, pol = eager_sess.dataset, eager_sess.policy
+    win_t, win_prev = ds.window(info.n_t), ds.window(info.n_prev)
+    full = eager_sess.eval_data if eager_sess.eval_data is not None \
+        else ds.window(ds.n)
+    opt, obj = eager_sess.optimizer, eager_sess.objective
+    M = int(pol.max_stage_iters)
+
+    def fresh():
+        hist = torch.zeros((3, M), dtype=torch.float32, device="cuda")
+        s = torch.zeros((), dtype=torch.int64, device="cuda")
+        done = torch.zeros((), dtype=torch.bool, device="cuda")
+        tracks, step = race_step_fns(opt, obj, pol, win_t, win_prev, full,
+                                     hist, s)
+        carry = step([w.clone(), opt.init(w), w.clone(), opt.init(w)])
+        s += 1
+        return hist, s, done, tracks, step, carry
+
+    leaves = rt["tree_leaves"]
+    hist, s, done, tracks, step, carry = fresh()
+    start = [x.clone() for x in leaves(carry)]
+    hist0 = hist.clone()
+    loop = ops.race_loop(step, carry, hist, s, done, M)
+    torch.cuda.synchronize()
+    n = int(s)
+    g_hist, g_carry = hist.clone(), [x.clone() for x in leaves(loop.carry)]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    graph_ms = []
+    for _ in range(WHILE_REPS):
+        for dst, src in zip(leaves(loop.carry), start):
+            dst.copy_(src)
+        hist.copy_(hist0)
+        s.fill_(1)
+        done.zero_()
+        ev[0].record()
+        loop.launch()
+        ev[1].record()
+        torch.cuda.synchronize()
+        graph_ms.append(ev[0].elapsed_time(ev[1]))
+        if int(s) != n or not torch.equal(hist, g_hist):
+            fail_later(f"race WHILE graph: a replay differs (s {int(s)} "
+                       f"against {n})")
+    capture_s = loop.capture_s
+    ops.finish_race_loop(loop, n)
+    plain_ms = []
+    for _ in range(WHILE_REPS):
+        p_hist, p_s, p_done, _, p_step, p_carry = fresh()
+        torch.cuda.synchronize()
+        ev[0].record()
+        ref.race_loop(p_step, p_carry, p_hist, p_s, p_done, M)
+        ev[1].record()
+        torch.cuda.synchronize()
+        plain_ms.append(ev[0].elapsed_time(ev[1]))
+    err = max(float((a - b).abs().max()) for a, b in
+              zip([g_hist] + g_carry, [p_hist] + leaves(p_carry)))
+    cost = profile.cost(tracks, [w, opt.init(w), w, opt.init(w)], win_t,
+                        win_prev, full)
+    state_bytes = sum(x.numel() * x.element_size() for x in start)
+    in_bytes = sum(x.numel() * x.element_size() for x in full) + state_bytes
+    out_bytes = state_bytes + hist.numel() * hist.element_size()
+    ops_s = cost["flops"] * (n - 1) / PEAK_F32_FLOPS_S
+    bytes_s = (in_bytes + out_bytes) / PEAK_BYTES_S
+    wrow = {"path": "race_while_graph", "stage": stage, "n_t": info.n_t,
+            "n_prev": info.n_prev, "steps": n, "graph_steps": n - 1,
+            "triggered": bool(done), "ms": float(np.median(graph_ms)),
+            "plain_ms": float(np.median(plain_ms)),
+            "ms_runs": graph_ms, "plain_ms_runs": plain_ms,
+            "capture_ms": capture_s * 1e3, "max_abs_err": err,
+            "bitwise": err == 0.0, "flops_per_step": cost["flops"],
+            "bytes": in_bytes + out_bytes,
+            "bound_ms": max(ops_s, bytes_s) * 1e3,
+            "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+            "library_ms": None}
+    emit(wrow)
+    if err != 0.0:
+        emit({"path": "race_while_graph", "note": "the graph and the "
+              "eager loop differ", "max_abs_err": err})
+
+    # (3) BENCH_engine.json's engine-side claim at its setting
+    methods = rt["methods"]
+    ds, eobj, ew0, _ = methods.setup(ENGINE_DATA, ENGINE_SCALE,
+                                     device="cuda")
+    n0 = max(128, min(ds.d, ds.n // 8))
+    per = {}
+    for method, kw in (("bet_fixed", dict(inner_steps=5, final_steps=25)),
+                       ("bet", dict(final_steps=25)),
+                       ("batch", dict(steps=30))):
+        tr = methods.run_method(method, ds, eobj, ew0, n0=n0, **kw)
+        per[method] = {"host_transfers": tr.meta["host_transfers"],
+                       "stages": tr.meta["stages"],
+                       "syncs_per_stage": tr.meta["host_transfers"]
+                       / tr.meta["stages"]}
+    claim = all(v["syncs_per_stage"] <= 1.0 for v in per.values())
+    emit({"path": "race_bench_engine", "workload":
+          f"fig3/{ENGINE_DATA}", "scale": ENGINE_SCALE, "n": ds.n,
+          "d": ds.d, "n0": n0, "methods": per,
+          "engine_max_one_transfer_per_stage": claim})
+    if not claim:
+        fail_later(f"bench_engine setting: engine_max_one_transfer_per_"
+                   f"stage is false: {per}")
+    emit({"phase": "race", "seconds": time.perf_counter() - t_phase})
+    del eager_sess, graph_sess
+    rt["main_two_track"] = {"device_while": main["device_while"]}
+    return wrow
+
+
+def profiler_trace_summary(path: Path) -> dict:
+    """The Chrome trace ``torch.profiler`` wrote around a run: its size,
+    its events and how many of them are the card's kernels."""
+    if not path.is_file():
+        return {"written": False, "events": 0, "kernel_events": 0}
+    events = json.loads(path.read_text()).get("traceEvents", [])
+    return {"written": True, "bytes": path.stat().st_size,
+            "events": len(events),
+            "kernel_events": sum(e.get("cat") == "kernel" for e in events)}
+
+
+def obs_phase(torch, rt, scale: float = 6.0, device: str = "cuda") -> dict:
+    """Observability on the card.  quickstart@6 two-track on the plane
+    under ``ObsSpec(enabled, dir, chrome_trace, profile, health,
+    jax_profiler_dir)``: the RunReport's claims all true
+    (``le_one_transfer_per_stage`` among them), the run bitwise the same
+    run unobserved, ``torch.profiler``'s Chrome trace written with the
+    card's kernels in it, one ``profile.stage``
+    a stage with its FLOPs and roofline seconds beside the stage's
+    measured compute seconds, the files written.  Then BENCH_dist.json's
+    setting under fleet and health obs at 4 simulated hosts: one lane file
+    a host and the driver's, the merged trace causal at every barrier,
+    health's detections, the claims over the merged stream.  ``scale``
+    and ``device`` run it small on the CPU."""
+    api = rt["api"]
+    t_phase = time.perf_counter()
+    data, base = quickstart_specs(api, scale)
+    spec = api.RunSpec(name="obs_quickstart", policy=api.PolicySpec(
+        "two_track", {"final_steps": 20}),
+        **dict(base, data=data.replace(plane="plane")))
+    off = api.build(spec, device=device).run()
     with tempfile.TemporaryDirectory(dir=rt["build_dir"]) as d:
-        for name in BENCH_PRESETS + SERVE_PRESETS:
-            preset = wl.get_workload(name)
-            workload = name
-            if name in SERVE_PRESETS:
-                spec = preset.spec()
-                workload = spec.replace(checkpoint=spec.checkpoint.replace(
-                    directory=str(Path(d) / name)))
-            gc.collect()
-            ops.reset_calls()
-            t0 = time.perf_counter()
-            sess = api.run(workload, device=device)
-            if device == "cuda":
-                torch.cuda.synchronize()
-            row = {"path": "preset", "name": name, "arch": preset.arch,
-                   "family": preset.family, "scenario": preset.scenario,
-                   **preset_result(preset, wl.FAMILIES, sess,
-                                   dict(ops.CALLS)),
-                   "kernel_calls": dict(ops.CALLS),
-                   "wall_s": time.perf_counter() - t0}
-            emit(row)
-            if not all(row["claims"].values()):
-                fail_later(f"preset {name}: claims {row['claims']}")
-            rows.append(row)
-            del sess
-    for name in REFUSED_PRESETS:
-        try:
-            api.run(name, device=device)
-        except api.SpecError as e:
-            refusal = str(e)
-        else:
-            refusal = None
-        emit({"path": "preset", "name": name, "refused": refusal})
-        if refusal is None or "A11" not in refusal:
-            fail_later(f"preset {name}: not refused for slice A11 "
-                       f"({refusal})")
+        obs = api.ObsSpec(enabled=True, dir=str(Path(d) / "obs"),
+                          chrome_trace=True, profile=True, health=True,
+                          jax_profiler_dir=str(Path(d) / "profiler"))
+        sess = api.build(spec.replace(obs=obs), device=device)
+        t0 = time.perf_counter()
+        tr = sess.run()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        claims = sess.run_report().claims()
+        files = sorted(p.name for p in (Path(d) / "obs").iterdir())
+        profiler = profiler_trace_summary(Path(d) / "profiler" / "trace.json")
+    differ = bitwise_diff(run_record(off), run_record(tr))
+    if not torch.equal(off.params, tr.params):
+        differ.append("params")
+    events = sess.recorder.event_dicts()
+    compute = collections.defaultdict(float)
+    for e in events:
+        if e["name"] == "stage.compute":
+            compute[e["tags"].get("stage")] += e["dur"]
+    prof = [{"stage": e["fields"]["stage"], "n_t": e["fields"]["n_t"],
+             "callable": e["fields"]["callable"],
+             "flops": e["fields"].get("flops"),
+             "bytes": e["fields"].get("bytes"),
+             "roofline_us": e["fields"].get("roofline_us"),
+             "bottleneck": e["fields"].get("bottleneck"),
+             "error": e["fields"].get("error"),
+             "stage_compute_s": compute.get(e["fields"]["stage"])}
+            for e in events if e["name"] == "profile.stage"]
+    health = sess.health_report()
+    row = {"path": "obs", "run": "quickstart@6 two_track plane",
+           "claims": claims, "wall_s": wall,
+           "unobserved_differs": differ, "events": len(events),
+           "files": files, "profile": prof, "profiler_trace": profiler,
+           "healthy": health.healthy,
+           "detections": [d.to_dict() for d in health.detections]}
+    emit(row)
+    if not profiler["events"] or (device == "cuda"
+                                  and not profiler["kernel_events"]):
+        fail_later(f"obs quickstart@6: the profiler's trace {profiler}")
+    if not all(v is True for v in claims.values()):
+        fail_later(f"obs quickstart@6: claims {claims}")
+    if differ:
+        fail_later(f"obs quickstart@6: observed run differs from the "
+                   f"unobserved one in {differ}")
+    if len(prof) != tr.meta["stages"] or \
+            any(p["error"] or not p["flops"] for p in prof):
+        fail_later(f"obs quickstart@6: profile events {prof}")
+    want = {"events.jsonl", "trace.json", "report.json", "report.txt",
+            "health.json", "health.txt"}
+    if not want <= set(files):
+        fail_later(f"obs quickstart@6: files {files}")
+
+    with tempfile.TemporaryDirectory(dir=rt["build_dir"]) as workdir:
+        inner, final = DIST_STEPS
+        dist_data, n0 = dict(DIST_DATA), DIST_N0
+        if scale != 6.0:            # small: 512 rows, shards of 32, n0 64
+            dist_data.update(scale=DIST_DATA["scale"] / 4, shard_size=32)
+            n0 = 64
+        bench = api.RunSpec(
+            name="bench_dist_obs", data=api.DataSpec(
+                lam=1e-3, plane="plane", store="memmap", workdir=workdir,
+                **dist_data),
+            policy=api.PolicySpec("fixed_steps", {"inner_steps": inner,
+                                                  "final_steps": final}),
+            optimizer=api.OptimizerSpec("newton_cg",
+                                        {"hessian_fraction": 1.0}),
+            schedule=api.ScheduleSpec(n0=n0),
+            topology=api.TopologySpec(hosts=HOSTS),
+            obs=api.ObsSpec(enabled=True, fleet=True, health=True,
+                            dir=str(Path(workdir) / "obs"),
+                            chrome_trace=True))
+        fsess = api.build(bench, device=device)
+        t0 = time.perf_counter()
+        ftr = fsess.run()
+        fwall = time.perf_counter() - t0
+        lanes = sorted(str(k) for k in ftr.meta["obs_files"]["lanes"])
+        ft = fsess.fleet_trace()
+        barriers = sorted({e["fields"]["stage"] for e in ft.events
+                           if e["name"] == "fleet.barrier"})
+        causal = True
+        for k in barriers:
+            last = max(i for i, e in enumerate(ft.events)
+                       if e["name"] == "fleet.barrier"
+                       and e["fields"]["stage"] == k)
+            seen = {e["lane"] for e in ft.events[:last + 1]
+                    if e["name"] == "fleet.barrier"
+                    and e["fields"]["stage"] == k}
+            causal &= seen == {"driver", *range(HOSTS)}
+        seqs: dict = {}
+        for e in ft.events:
+            causal &= e["lane_seq"] > seqs.get(e["lane"], -1)
+            seqs[e["lane"]] = e["lane_seq"]
+        fclaims = fsess.run_report().claims()
+        fhealth = fsess.health_report()
+        loads = {h: sum(1 for e in ft.events if e["lane"] == h
+                        and e["name"] == "meter.load")
+                 for h in range(HOSTS)}
+        frow = {"path": "obs_fleet", "run": "bench_dist", "hosts": HOSTS,
+                "n": fsess.dataset.n, "wall_s": fwall, "lanes": lanes,
+                "merged_events": len(ft.events), "barriers": barriers,
+                "causal_at_every_barrier": causal,
+                "meter_loads_per_lane": loads, "claims": fclaims,
+                "offsets_s": {str(k): v.get("offset_s")
+                              for k, v in ft.hosts.items()},
+                "healthy": fhealth.healthy,
+                "detections": [d.to_dict() for d in fhealth.detections]}
+        emit(frow)
+        if lanes != sorted(["0", "1", "2", "3", "driver"]) or not causal \
+                or not all(loads.values()) or \
+                not fclaims["per_host_loads_are_owned_slice"] or \
+                not fclaims["each_example_loaded_once"]:
+            fail_later(f"obs fleet bench_dist: {frow}")
+        del fsess
+    emit({"phase": "obs", "seconds": time.perf_counter() - t_phase})
+    return row
+
+
+def sweep_phase(torch, rt, device: str = "cuda", names=None) -> list:
+    """BENCH_workloads.json's matrix: the eleven presets (or ``names``)
+    through the port's sweep (``repro_torch.workloads.sweep``: each preset
+    observed, its claims recomputed from its events, its checkpoints and
+    logs in a temporary directory), one line a preset; ``matrix_green``
+    (every claim of every preset true) must hold."""
+    wl = rt["workloads"]
+    names = names or [p.name for p in wl.PRESETS]
+    t0 = time.perf_counter()
+    rows = []
+
+    def line(res):
+        row = {"path": "preset", **res.to_dict()}
+        emit(row)
+        rows.append(row)
+    with tempfile.TemporaryDirectory(dir=rt["build_dir"]) as d:
+        wl.sweep(names, workdir=d, device=device, progress=line)
+    green = all(r["ok"] for r in rows)
+    emit({"path": "sweep", "presets": len(rows), "matrix_green": green,
+          "seconds": time.perf_counter() - t0})
+    if not green or len(rows) != len(names):
+        fail_later(f"sweep: matrix not green: "
+                   f"{[(r['name'], r['claims'], r['error']) for r in rows if not r['ok']]}")
     return rows
 
 
@@ -3090,6 +3409,8 @@ def main() -> None:
     attn_row = attention_kernel_phase(torch, rt)
     # 3. the main paths, each with its own launch counts
     launches = main_path_phase(torch, rt)
+    while_row = while_graph_phase(torch, rt)
+    obs_phase(torch, rt)
     plane_launches = convex_plane_phase(torch, rt)
     method_launches = convex_methods_phase(torch, rt)
     lm_plane_vs_host_phase(torch, rt, "falcon-mamba-7b")
@@ -3110,8 +3431,8 @@ def main() -> None:
         for k, v in run["launches"].items():
             tf_launches[k] = tf_launches.get(k, 0) + v
     zoo_phase(torch, rt)
-    presets = presets_phase(torch, rt)
-    serve_preset = {k: v for r in presets if r["name"] in SERVE_PRESETS
+    presets = sweep_phase(torch, rt)
+    serve_preset = {k: v for r in presets if r["scenario"] == "serve"
                     for k, v in r["kernel_calls"].items()}
     # serving: prefill and decode at full width, the closed loop, the A/B
     serving = serving_phase(torch, rt)
@@ -3200,7 +3521,22 @@ def main() -> None:
         "probe_bound_ms": attn_row["probe_bound_ms"],
         "shape": [attn_row[k] for k in ("B", "S", "H", "KV", "hd")],
         "window": attn_row["window"], "dtype": attn_row["dtype"],
-        "check": attn_row["check"]}]})
+        "check": attn_row["check"]}, {
+        "name": "device_while", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/device_while.cu",
+        "replaces": "src/repro/core/engine.py:444",
+        "launches": rt["main_two_track"]["device_while"],
+        "launches_lm": lm["launches"].get("device_while", 0),
+        "launches_transformer_moe": tf_launches.get("device_while", 0),
+        "launches_dist": rt["dist_while"],
+        "max_abs_err": while_row["max_abs_err"],
+        "ms": while_row["ms"], "plain_ms": while_row["plain_ms"],
+        "bound_ms": while_row["bound_ms"],
+        "bound_by": while_row["bound_by"], "library_ms": None,
+        "capture_ms": while_row["capture_ms"],
+        "stage": while_row["stage"], "steps": while_row["steps"],
+        "check": "the race of quickstart@6's longest racing stage against "
+                 "the plain loop on the card, histories and carries"}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

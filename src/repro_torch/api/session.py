@@ -17,8 +17,11 @@ in this process; convex runs opt into the elastic runtime
 and multi-host LM runs always run it, as in the reference.  ``build``
 validates the spec eagerly: unknown names and invalid combinations fail
 with a :class:`SpecError` as in the reference, and every branch a later
-slice brings (tiering, observability, one ``torch.distributed`` process
-per host) fails with a :class:`SpecError` that names it.  A serve spec is
+slice brings (tiering, one ``torch.distributed`` process per host) fails
+with a :class:`SpecError` that names it.  ``ObsSpec`` wires one event
+recorder through the stack (per-host lanes with ``fleet``, the live
+detectors with ``health``, per-stage costs and a ``torch.profiler``
+trace with ``profile``), as the reference's session does.  A serve spec is
 refused as the reference refuses it, pointing at
 ``repro_torch.serve.build_loop``.  ``run(workload)`` builds and runs a
 workload preset by name, serve presets through ``build_loop``.
@@ -30,7 +33,9 @@ raises rather than run on the CPU.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
+import json
 import pathlib
 from typing import Callable
 
@@ -128,9 +133,6 @@ def _validate(spec: RunSpec) -> None:
     if d.tiering.enabled:
         raise _not_ported("tiering (TieringSpec.enabled)",
                           "the tiered-corpus slice (ROADMAP queue A11)")
-    if spec.obs.enabled or spec.obs.fleet or spec.obs.health:
-        raise _not_ported("observability (ObsSpec)",
-                          "the observability slice (ROADMAP queue A11)")
     if spec.topology.kind == "process" and hosts > 1:
         # each process would fill only its own lane of a whole stacked
         # window, and nothing yet all-reduces the objective, the LM
@@ -194,6 +196,22 @@ def _validate(spec: RunSpec) -> None:
     if spec.checkpoint.resume and not spec.checkpoint.directory:
         raise SpecError("CheckpointSpec.resume needs a checkpoint "
                         "directory (--ckpt-dir) to restore from")
+    if spec.obs.fleet:
+        if not spec.obs.enabled:
+            raise SpecError("ObsSpec.fleet needs ObsSpec.enabled=True")
+        if hosts < 2:
+            raise SpecError(
+                "ObsSpec.fleet records one event lane per host and aligns "
+                "them at the stage-flush collectives — it needs hosts > 1 "
+                "(single-host runs have one stream and no barriers)")
+    if spec.obs.health and not spec.obs.enabled:
+        raise SpecError("ObsSpec.health needs ObsSpec.enabled=True")
+    if spec.obs.slo:
+        from ..obs.health import SLO_DEFAULTS
+        unknown = set(spec.obs.slo) - set(SLO_DEFAULTS)
+        if unknown:
+            raise SpecError(f"unknown ObsSpec.slo knobs {sorted(unknown)}; "
+                            f"known: {sorted(SLO_DEFAULTS)}")
 
     if d.kind == "lm":
         if spec.model is None:
@@ -503,8 +521,7 @@ def run(workload: "str | RunSpec", *, device="cuda",
     session with its ``trace`` populated; serve-enabled specs route
     through ``repro_torch.serve.build_loop`` and return the finished
     ``ServeTrainLoop`` (its trace under ``.trace``, its RunReport under
-    ``.run_report``).  An observed
-    spec is refused by ``build`` (it comes with ROADMAP queue A11)."""
+    ``.run_report``)."""
     if isinstance(workload, str):
         from ..workloads import get_workload
         workload = get_workload(workload).spec()
@@ -554,6 +571,119 @@ class Session:
         self.stage_ends: list[dict] = []
         self._callbacks: list[Callable] = []
         engine.stage_callback = self._stage_end
+        self.recorder = None            # EventRecorder when obs is enabled
+        self.health = None              # HealthMonitor when obs.health
+        if spec.obs.enabled:
+            self._wire_obs()
+
+    # -------------------------------------------------------- observability
+    def _wire_obs(self) -> None:
+        """One recorder through the whole stack: engine stage spans, data
+        plane meters/prefetchers, the simulated clock and the checkpointer
+        all emit into the same totally-ordered stream.
+
+        With ``obs.fleet`` the recorder is a :class:`FleetRecorder`:
+        driver-side events keep flowing through it (into the driver lane)
+        while ``attach_dataset`` routes each host's meter/prefetcher into
+        that host's own lane — one stream per host, merged after the run.
+        With ``obs.health`` a :class:`HealthMonitor` taps every lane and
+        runs the streaming detectors while the run is live.  With
+        ``obs.profile`` a :class:`StageProfiler` costs each stage's step
+        on meta tensors."""
+        obs = self.spec.obs
+        if obs.fleet:
+            from ..obs.fleet import FleetRecorder
+            rec = FleetRecorder(hosts=range(self.spec.topology.hosts))
+        else:
+            from ..obs import EventRecorder
+            rec = EventRecorder()
+        from ..obs.metrics import attach_clock, attach_dataset
+        self.recorder = rec
+        self.engine.recorder = rec
+        attach_dataset(self.dataset, rec)
+        attach_clock(self.clock, rec)
+        if self.checkpointer is not None:
+            self.checkpointer.recorder = rec
+        if obs.health:
+            from ..obs.health import HealthMonitor
+            self.health = HealthMonitor(slo=obs.slo)
+            self.health.attach(rec)
+        if obs.profile:
+            from ..obs.profile import StageProfiler
+            self.engine.profiler = StageProfiler(rec)
+
+    def run_report(self):
+        """The :class:`~repro_torch.obs.report.RunReport` over this
+        session's event stream (needs ``RunSpec.obs.enabled``)."""
+        if self.recorder is None:
+            raise SpecError("run_report needs observability: set "
+                            "RunSpec.obs.enabled=True before build()")
+        from ..obs import RunReport
+        from ..obs.fleet import FleetRecorder
+        if isinstance(self.recorder, FleetRecorder):
+            # the meters live in the host lanes — fold over the merged
+            # stream so the claims see every lane's traffic
+            return RunReport(self.recorder.merged().events)
+        return RunReport.from_recorder(self.recorder)
+
+    def health_report(self):
+        """The live :class:`~repro_torch.obs.health.HealthReport` (needs
+        ``RunSpec.obs.health``)."""
+        if self.health is None:
+            raise SpecError("health_report needs the live detectors: set "
+                            "RunSpec.obs.health=True before build()")
+        return self.health.report()
+
+    def fleet_trace(self):
+        """The merged per-host :class:`~repro_torch.obs.fleet.FleetTrace`
+        (needs ``RunSpec.obs.fleet``)."""
+        from ..obs.fleet import FleetRecorder
+        if not isinstance(self.recorder, FleetRecorder):
+            raise SpecError("fleet_trace needs per-host lanes: set "
+                            "RunSpec.obs.fleet=True before build()")
+        return self.recorder.merged()
+
+    def _emit_run_meta(self) -> None:
+        stores = getattr(self.dataset, "stores", None) or ()
+        row_bytes = sum(int(getattr(s, "example_nbytes", 0)) for s in stores)
+        self.recorder.instant("run.meta", fields={
+            "name": self.spec.name, "n": int(self.dataset.n),
+            "hosts": self.spec.topology.hosts,
+            "policy": self.spec.policy.name,
+            "n0": self.spec.schedule.n0, "growth": self.spec.schedule.growth,
+            "row_bytes": row_bytes})
+
+    def _write_obs(self) -> dict:
+        obs = self.spec.obs
+        d = pathlib.Path(obs.dir)
+        d.mkdir(parents=True, exist_ok=True)
+        from ..obs.fleet import FleetRecorder
+        if isinstance(self.recorder, FleetRecorder):
+            # one JSONL per lane + the causally-ordered merged trace
+            out = {"lanes": self.recorder.save(d)}
+            merged = self.recorder.merged()
+            out["fleet"] = str(d / "fleet.jsonl")
+            merged.to_jsonl(out["fleet"])
+            out["fleet_summary"] = str(d / "fleet.json")
+            with open(out["fleet_summary"], "w") as fh:
+                json.dump(merged.summary(), fh, indent=2)
+            # events.jsonl stays the driver stream, as in the reference
+            out["events"] = str(d / "events.jsonl")
+            self.recorder.driver.to_jsonl(out["events"])
+            if obs.chrome_trace:
+                out["trace"] = str(d / "fleet_trace.json")
+                merged.to_chrome_trace(out["trace"])
+        else:
+            out = {"events": str(d / "events.jsonl")}
+            self.recorder.to_jsonl(out["events"])
+            if obs.chrome_trace:
+                out["trace"] = str(d / "trace.json")
+                self.recorder.to_chrome_trace(out["trace"])
+        if obs.report:
+            out.update(self.run_report().save(d))
+        if self.health is not None:
+            out.update(self.health.report().save(d))
+        return out
 
     # ------------------------------------------------------------- boundaries
     def on_stage(self, callback: Callable[[StageEnd], None]) -> None:
@@ -621,12 +751,20 @@ class Session:
         meta = dict(spec.meta)
         if self.model_config is not None:
             meta.setdefault("arch", self.model_config.name)
+        prof = contextlib.nullcontext()
+        if self.recorder is not None:
+            self._emit_run_meta()
+            if spec.obs.jax_profiler_dir:
+                from ..obs.profile import profiler_trace
+                prof = profiler_trace(spec.obs.jax_profiler_dir)
         try:
-            trace = self.engine.run(
-                self.dataset, self.optimizer, self.objective, self.policy,
-                clock=self.clock, eval_data=self.eval_data,
-                trace_name=None if spec.name == "run" else spec.name,
-                meta=meta or None, progress=progress, probe=probe, **run_kw)
+            with prof:
+                trace = self.engine.run(
+                    self.dataset, self.optimizer, self.objective,
+                    self.policy, clock=self.clock, eval_data=self.eval_data,
+                    trace_name=None if spec.name == "run" else spec.name,
+                    meta=meta or None, progress=progress, probe=probe,
+                    **run_kw)
         finally:
             self.close()
         meter = getattr(self.dataset, "meter", None)
@@ -636,6 +774,8 @@ class Session:
             trace.meta["data_plane_hosts"] = {
                 h: self.dataset.host_meters[h].snapshot()
                 for h in self.dataset.planes}
+        if self.recorder is not None and spec.obs.dir:
+            trace.meta["obs_files"] = self._write_obs()
         self.trace = trace
         return trace
 

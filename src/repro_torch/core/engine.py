@@ -24,24 +24,31 @@ per chunk (``trace.meta["host_transfers"]`` counts the pulls), then replays
 the §4.2 clock charges.  A policy that ``wants_variance`` gets the
 gradient-variance statistics of the chunk's last point in the same pull.
 
-The Two-Track race runs in chunks whose cumulative sizes are 2, 4, 8, …:
-both tracks step through a chunk with no host read, and one pull brings
-the chunk's histories to the host, which finds the first step that meets
-condition (3).  Inside a chunk the slow track freezes on the device once
-condition (3) holds: a device bool ``frozen`` is raised from the
-histories the step has just written, and every later step of the chunk
-keeps the slow carry's old leaves where it is raised
-(``torch.where(frozen, old, new)``, leaf by leaf).  So when the host finds
-the trigger, the live slow carry is already the trigger step's, and
-nothing is rolled back; the select needs one leaf of temporaries, never a
-second carry, so a carry of any size races in chunks.  Host-side leaves
-(a Python step counter) cannot be selected on the device: the host keeps
-their values per step and restores the trigger step's.  A racing stage of
-s steps costs about ⌈log₂ s⌉ transfers.  The steps run past a trigger are
-counted in ``trace.meta["race_overshoot"]``; they never reach the trace
-or the clock.  A policy that wants the variance test (a
+A Two-Track racing stage leaves the device once, as the reference's
+``lax.while_loop`` does: the first race step runs eagerly (condition (3)
+cannot fire before the second, and the step warms up the kernels and the
+allocator), then the race step is captured once and repeated by a CUDA
+graph's WHILE node until condition (3) fires or ``max_stage_iters`` steps
+have run (``kernels/device_while.py``; on the CPU the same step runs in a
+plain loop).  Each step writes f̂ into device histories at the device
+step index ``s``; one pull then brings the histories, ``s`` and the
+trigger flag (and the slow track's parameters when a probe wants them).
+The slow carry left on the device is the trigger step's, so nothing runs
+past the trigger: ``trace.meta["race_overshoot"]`` stays 0 (the key is
+kept for checkpoints).  A policy that wants the variance test (a
 ``GradientVariance`` veto) gets one more pull after each race round, as
 in the reference.
+
+A captured graph is kept for the next race round (a veto's re-race, or
+the next stage) while what it baked in holds: the same optimizer,
+objective, policy and step budget, carries of the same shapes, and
+windows that are the same tensors.  A window's device scalars (a
+``MaskedWindow``'s valid length) are read through scalars the graph owns,
+so the plane's fixed-shape windows replay one graph over every racing
+stage; the host path's windows change shape each stage, and each stage
+captures its own.  A replayed round starts at step 1 inside the graph.
+A stage hands on copies of the graph's carries, since the next round
+writes them, and the graph is freed before the final phase.
 
 Parameters and optimizer states may be single tensors (the convex path) or
 nested dicts of tensors (the LM path); optimizers are functional (a step
@@ -57,15 +64,11 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from ..data.device_window import MaskedWindow
+from ..kernels import ops
 from ..optim.api import BatchOptimizer, Objective, tree_leaves, tree_map
 from .timemodel import SimulatedClock
 from .trace import Trace
-
-
-# The race's chunks double (cumulative sizes 2, 4, 8, …).  False runs
-# chunks of one step after the first two, reading condition (3) once per
-# step with no freeze: the tests hold the doubling race to it.
-RACE_DOUBLING = True
 
 
 # ------------------------------------------------------------------ schedule
@@ -406,48 +409,117 @@ def _param_buffer(w, k: int):
                                           dtype=x.dtype, device=x.device), w)
 
 
-def _store(buf, s: int, w) -> None:
-    """Write step ``s``'s parameters into the buffers of ``_param_buffer``."""
+def _store(buf, s, w) -> None:
+    """Write step ``s``'s parameters into the buffers of ``_param_buffer``;
+    ``s`` is a host index or a device step index (a 0-d int64 tensor)."""
     def put(b, x):
-        b[s] = x
+        if isinstance(s, torch.Tensor):
+            b.index_copy_(0, s.view(1), x.unsqueeze(0))
+        else:
+            b[s] = x
     tree_map(put, buf, w)
 
 
-def _hold(frozen: torch.Tensor, old, new):
-    """``new`` with each tensor leaf kept at ``old``'s value where the
-    device bool ``frozen`` is raised.  ``new``'s dicts (fresh from an
-    optimizer step) are overwritten in place, leaf by leaf, so each
-    unkept leaf is freed as soon as its select is made: one leaf of
-    temporaries, never a second tree.  Host-side leaves keep ``new``'s
-    value (the race restores them from its host record)."""
-    if isinstance(new, dict):
-        for k in new:
-            new[k] = _hold(frozen, old[k], new[k])
-        return new
-    return tree_map(lambda o, n: torch.where(frozen, o, n)
-                    if isinstance(n, torch.Tensor) else n, old, new)
+def _signature(x, *, addresses: bool):
+    """What a captured race step bakes in from ``x``: the tree's
+    structure, each tensor's shape, dtype and device, and, with
+    ``addresses``, each tensor's memory (a 0-d tensor is staged, see
+    ``_stage_scalars``, and is matched by dtype and device alone); a
+    ``MaskedWindow`` by its fields, host values by value, any other object
+    by identity (the race graph holds it, so the identity stays its
+    own)."""
+    if isinstance(x, torch.Tensor):
+        sig = (tuple(x.shape), x.dtype, x.device)
+        if addresses and x.dim():
+            sig += (x.data_ptr(), x.stride())
+        return sig
+    if isinstance(x, dict):
+        return tuple((k, _signature(v, addresses=addresses))
+                     for k, v in x.items())
+    if isinstance(x, (list, tuple)):
+        return (type(x),) + tuple(_signature(v, addresses=addresses)
+                                  for v in x)
+    if isinstance(x, MaskedWindow):
+        return (MaskedWindow, _signature(x.data, addresses=addresses),
+                _signature(x.n_valid, addresses=addresses))
+    if x is None or isinstance(x, (bool, int, float, str)):
+        return x
+    return ("object", id(x))
 
 
-def _host_part(tree):
-    """The host-side leaves of ``tree``, tensors blanked to None."""
-    return tree_map(lambda x: None if isinstance(x, torch.Tensor) else x,
-                    tree)
+def _map_scalars(fn, x):
+    """``x`` with ``fn`` applied to each 0-d tensor of its tuples, lists
+    and ``MaskedWindow``s."""
+    if isinstance(x, torch.Tensor) and x.dim() == 0:
+        return fn(x)
+    if isinstance(x, (list, tuple)):
+        return type(x)(_map_scalars(fn, v) for v in x)
+    if isinstance(x, MaskedWindow):
+        return MaskedWindow(x.data, _map_scalars(fn, x.n_valid))
+    return x
 
 
-def _with_host_part(tree, part):
-    return tree_map(lambda x, h: x if isinstance(x, torch.Tensor) else h,
-                    tree, part)
+def _stage_scalars(x, scalars: list):
+    """``x`` with each 0-d tensor of ``_map_scalars`` replaced by a copy,
+    appended to ``scalars``: a graph captured on the copies reads a later
+    window's scalars once they are copied in."""
+    def stage(t):
+        scalars.append(t.clone())
+        return scalars[-1]
+    return _map_scalars(stage, x)
 
 
-def _first_trigger(f_slow: np.ndarray, f_fast: np.ndarray, lo: int,
-                   hi: int) -> int | None:
-    """The first s in [lo, hi], s >= 2, at which condition (3) holds:
-    the slow track after ⌊s/2⌋ steps already beats the fast track after s
-    (``f_*[i]`` is the value after step i + 1)."""
-    for s in range(max(lo, 2), hi + 1):
-        if f_slow[max(0, s // 2 - 1)] < f_fast[s - 1]:
-            return s
-    return None
+def _window_scalars(x) -> list:
+    """The 0-d tensors of ``x`` in ``_stage_scalars``' order."""
+    out: list = []
+    _map_scalars(out.append, x)
+    return out
+
+
+@dataclasses.dataclass
+class _RaceGraph:
+    """A captured race loop kept for later rounds: its launch, the device
+    buffers it writes (``hist``, ``s``, ``triggered`` and, with a probe,
+    ``W``), the window scalars it reads, and what it baked in (``key``;
+    ``held`` keeps the objects the key names by identity alive)."""
+    key: tuple
+    loop: Any
+    bufs: dict
+    scalars: list
+    held: tuple
+
+
+def race_step_fns(optimizer, objective, policy, win_t, win_prev, full_data,
+                  hist, s, W=None):
+    """The race's step functions over one stage's windows: ``race_tracks``
+    (both tracks' step and the step's three f̂) and ``race_step`` (that,
+    with f̂ written into the histories ``hist`` (3, max_iters), and the
+    slow track's parameters into ``W`` when given, at the device step
+    index ``s``) — the step the WHILE graph captures."""
+    def race_tracks(carry: list, win_t, win_prev, full_data):
+        """Both tracks' step from ``carry`` ([w_slow, st_slow, w_fast,
+        st_fast]), replaced in the list as each track steps, so an old
+        carry is dropped as soon as its successor exists; returns the list
+        and the step's three f̂ (slow on the window, fast on the window,
+        slow on the full data)."""
+        carry[0], carry[1], aux = optimizer.step(carry[0], carry[1],
+                                                 objective, win_t)
+        carry[2], carry[3], _ = optimizer.step(carry[2], carry[3],
+                                               objective, win_prev)
+        f_slow = objective(carry[0], win_t) \
+            if policy.condition == "eval" else aux["f"]
+        return carry, torch.stack([f_slow.float(),
+                                   objective(carry[2], win_t).float(),
+                                   objective(carry[0], full_data).float()])
+
+    def race_step(carry: list) -> list:
+        carry, row = race_tracks(carry, win_t, win_prev, full_data)
+        hist.index_copy_(1, s.view(1), row.view(3, 1))
+        if W is not None:
+            _store(W, s, carry[0])
+        return carry
+
+    return race_tracks, race_step
 
 
 # ---------------------------------------------------------------- the engine
@@ -467,7 +539,9 @@ class BetEngine:
     reference's structured events: per stage ``stage.begin``, the
     ``stage.acquire``, ``stage.compute`` and ``stage.flush`` spans,
     ``engine.transfer`` per pull, ``expand.decision`` per policy
-    consultation, the ``stage.totals`` counter and ``stage.end``.  Off by
+    consultation, the ``stage.totals`` counter and ``stage.end``.
+    ``profiler`` (an ``obs.profile.StageProfiler``) costs each stage's
+    step once before the stage's first step, on meta tensors.  Both off by
     default; the trajectory is bit-identical either way."""
     schedule: BETSchedule = dataclasses.field(default_factory=BETSchedule)
     step_cost: Callable[[int], int] | None = None
@@ -477,6 +551,11 @@ class BetEngine:
     # once-per-stage boundary callback (StageEnd)
     stage_callback: Callable | None = None
     recorder: Any | None = None
+    profiler: Any | None = None
+    # the seconds each race round of the last run spent capturing its
+    # WHILE graph (0.0 for the plain loop on the CPU)
+    race_capture_s: list = dataclasses.field(default_factory=list,
+                                             repr=False)
 
     def run(self, dataset, optimizer: BatchOptimizer, objective: Objective,
             policy: ExpansionPolicy, *, w0=None, clock: SimulatedClock | None = None,
@@ -523,6 +602,7 @@ class BetEngine:
         trace.meta["host_transfers"] = ctx["transfers"]
         trace.meta["race_overshoot"] = ctx["overshoot"]
         trace.meta["stages"] = ctx["stages"]
+        self.race_capture_s = ctx["capture_s"]
         return trace
 
     def _context(self, trace, clock, probe, progress, dataset) -> dict:
@@ -531,7 +611,8 @@ class BetEngine:
                 "cost": self.step_cost or (lambda n: n), "probe": probe,
                 "progress": progress, "dataset": dataset,
                 "obs": self.recorder, "step_count": 0, "transfers": 0,
-                "stages": 0, "overshoot": 0}
+                "stages": 0, "overshoot": 0, "capture_s": [],
+                "race_graph": None}
 
     # ------------------------------------------------------------ online runs
     def run_online(self, dataset, optimizer: BatchOptimizer,
@@ -705,6 +786,11 @@ class BetEngine:
             if policy.wants_variance else 0
         policy.stage_begin(info)
         rec = StageRecords()
+        if self.profiler is not None:
+            def scan_step(w, state, data):
+                return optimizer.step(w, state, objective, data)
+            self.profiler.observe(info, scan_step, (carry[0], carry[1], win),
+                                  {})
         while True:
             k = int(policy.plan_steps(info, rec.steps))
             with _obs_span(obs, "stage.compute", steps=k, window=info.n_t):
@@ -812,60 +898,78 @@ class BetEngine:
     def _race(self, ctx, optimizer, objective, policy, w, st_slow, st_fast,
               win_t, win_prev, full_data):
         """One race round: both tracks step from ``w`` until condition (3)
-        fires or ``max_stage_iters`` elapse, in chunks with one pull each,
-        the slow track frozen on the device from the trigger on (module
-        docstring).  Returns the slow track's carries at the trigger and
-        the round's pulled histories, cut at the trigger."""
+        fires or ``max_stage_iters`` elapse, on the device, with one pull
+        (module docstring).  Returns the slow track's carries at the
+        trigger and the round's pulled histories, cut at the trigger."""
         M = int(policy.max_stage_iters)
-        dev = tree_leaves(w)[0].device
-        hist = torch.empty((3, M), dtype=torch.float32, device=dev)
-        W = _param_buffer(w, M) if ctx["probe"] is not None else None
-        w_slow = w_fast = w
-        host = np.empty((3, 0), dtype=np.float32)
-        host_W = []
-        s, trig = 0, None
-        while trig is None and s < M:
-            end = min(M, 2 if s < 2 else
-                      1 << s.bit_length() if RACE_DOUBLING else s + 1)
-            start, frozen, host_parts = s, None, {}
-            while s < end:
-                new_w, new_st, aux = optimizer.step(w_slow, st_slow,
-                                                    objective, win_t)
-                if frozen is not None:      # a trigger may have fired
-                    new_w = _hold(frozen, w_slow, new_w)
-                    new_st = _hold(frozen, st_slow, new_st)
-                w_slow, st_slow = new_w, new_st
-                del new_w, new_st
-                w_fast, st_fast, _ = optimizer.step(w_fast, st_fast,
-                                                    objective, win_prev)
-                hist[0, s] = (objective(w_slow, win_t)
-                              if policy.condition == "eval" else aux["f"])
-                hist[1, s] = objective(w_fast, win_t)
-                hist[2, s] = objective(w_slow, full_data)
-                if W is not None:
-                    _store(W, s, w_slow)
-                s += 1
-                if 2 <= s < end:            # condition (3) at step s
-                    hit = hist[0, s // 2 - 1] < hist[1, s - 1]
-                    frozen = hit if frozen is None else frozen | hit
-                    host_parts[s] = _host_part(st_slow)
-            tensors = {"hist": hist[:, start:end]}
-            if W is not None:
-                tensors["W"] = tree_map(lambda b: b[start:end], W)
-            pulled = _pull(ctx, tensors)
-            host = np.concatenate([host, pulled["hist"]], axis=1)
-            if W is not None:
-                host_W.append(pulled["W"])
-            # condition (3), tested on the host over the chunk's steps
-            trig = _first_trigger(host[0], host[1], start + 1, end)
-            if trig is not None and trig < end:
-                st_slow = _with_host_part(st_slow, host_parts[trig])
-                ctx["overshoot"] += end - trig
-                s = trig
-        out = {"hist": host[:, :s], "triggered": trig is not None}
-        if W is not None:
-            out["W"] = tree_map(lambda *c: np.concatenate(c)[:s], *host_W)
-        return w_slow, st_slow, out
+        wins = (win_t, win_prev, full_data)
+        start = [w, st_slow, w, st_fast]
+        del w, st_slow, st_fast
+        key = (id(optimizer), id(objective), id(policy), policy.condition,
+               M, ctx["probe"] is not None,
+               _signature(start, addresses=False),
+               _signature(wins, addresses=True))
+        graph = ctx["race_graph"]
+        if graph is not None and graph.key != key:
+            self._drop_race_graph(ctx)
+            graph = None
+        if graph is not None:           # replay it from step 1
+            bufs = graph.bufs
+            for dst, src in zip(graph.scalars, _window_scalars(wins)):
+                dst.copy_(src)
+            bufs["s"].zero_()
+            bufs["triggered"].zero_()
+            loop = graph.loop
+            ops.rerun_race_loop(loop, start)
+            carry = loop.carry
+            ctx["capture_s"].append(0.0)
+        else:
+            dev = tree_leaves(start[0])[0].device
+            bufs = {"hist": torch.zeros((3, M), dtype=torch.float32,
+                                        device=dev),
+                    "s": torch.zeros((), dtype=torch.int64, device=dev),
+                    "triggered": torch.zeros((), dtype=torch.bool,
+                                             device=dev)}
+            if ctx["probe"] is not None:
+                bufs["W"] = _param_buffer(start[0], M)
+            scalars: list = []
+            staged = _stage_scalars(wins, scalars)
+            _, race_step = race_step_fns(optimizer, objective, policy,
+                                         *staged, bufs["hist"], bufs["s"],
+                                         bufs.get("W"))
+            # what the race starts from, which a step's output may view and
+            # the WHILE graph must not write
+            keep = [x for x in tree_leaves([start, wins])
+                    if isinstance(x, torch.Tensor)]
+            carry = race_step(start)
+            del start
+            bufs["s"] += 1
+            loop = None
+            if M > 1:
+                loop = ops.race_loop(race_step, carry, bufs["hist"],
+                                     bufs["s"], bufs["triggered"], M, keep)
+                carry = loop.carry
+                ctx["capture_s"].append(loop.capture_s)
+                if loop.replayable:
+                    ctx["race_graph"] = _RaceGraph(
+                        key, loop, bufs, scalars,
+                        held=(optimizer, objective, policy, wins))
+        pulled = _pull(ctx, bufs)
+        n = int(pulled["s"])
+        if loop is not None:
+            ops.finish_race_loop(loop, n, close=ctx["race_graph"] is None)
+        out = {"hist": pulled["hist"][:, :n],
+               "triggered": bool(pulled["triggered"])}
+        if "W" in pulled:
+            out["W"] = tree_map(lambda b: b[:n], pulled["W"])
+        return carry[0], carry[1], out
+
+    @staticmethod
+    def _drop_race_graph(ctx) -> None:
+        """Free the kept race graph, if any."""
+        graph, ctx["race_graph"] = ctx["race_graph"], None
+        if graph is not None:
+            graph.loop.close()
 
     def _flush_race_stage(self, ctx, policy, info: StageInfo,
                           rec: StageRecords, probe_k: int) -> None:
@@ -918,10 +1022,32 @@ class BetEngine:
         """The racing stages, then the final phase, from ``carry`` ([w,
         state], updated in place); stages before ``first_stage`` ran before
         a checkpoint and are skipped."""
-        clock, obs = ctx["clock"], ctx["obs"]
         w, state = carry
         carry.clear()
         *racing, final_info = self.stage_infos(policy, dataset.n)
+        try:
+            w, state = self._race_stages(ctx, dataset, optimizer, objective,
+                                         policy, w, state, racing,
+                                         full_data, first_stage)
+        finally:
+            self._drop_race_graph(ctx)
+
+        # final phase: full window until the step budget is spent
+        if first_stage > final_info.stage:
+            carry[:] = (w, state)       # the checkpoint is past the final phase
+            return
+        carry[:] = (w, optimizer.reset_memory(
+            state if self.carry_state else optimizer.init(w)))
+        del w, state
+        self._run_scan_stage(ctx, dataset, optimizer, objective, policy,
+                             final_info, carry, full_data,
+                             eval_full=policy.final_eval_full)
+
+    def _race_stages(self, ctx, dataset, optimizer, objective, policy, w,
+                     state, racing, full_data, first_stage: int):
+        """The racing stages from (``w``, ``state``); returns the carries
+        the final phase starts from."""
+        clock, obs = ctx["clock"], ctx["obs"]
         for info in racing:
             if info.stage < first_stage:
                 continue                # completed before the checkpoint
@@ -947,6 +1073,13 @@ class BetEngine:
             # a ComposedPolicy veto can hold the stage open, re-racing from
             # the current point with a fresh fast track
             while True:
+                if self.profiler is not None and rec.steps == 0:
+                    race_tracks, _ = race_step_fns(
+                        optimizer, objective, policy, win_t, win_prev,
+                        full_data, None, None)
+                    self.profiler.observe(info, race_tracks, (
+                        [w, st_slow, w, st_fast], win_t, win_prev,
+                        full_data), {})
                 with _obs_span(obs, "stage.compute", window=n_t):
                     w, state, pulled = self._race(
                         ctx, optimizer, objective, policy, w, st_slow,
@@ -975,6 +1108,10 @@ class BetEngine:
                         f"{rec.steps} racing steps")
                 st_slow = state
                 st_fast = optimizer.init(w)
+            del st_slow, st_fast
+            if ctx["race_graph"] is not None:
+                # the next round writes the graph's carries: hand on copies
+                w, state = tree_map(torch.clone, (w, state))
             with _obs_span(obs, "stage.flush", window=n_t):
                 self._flush_race_stage(ctx, policy, info, rec, probe_k)
             policy.stage_end(info, rec)
@@ -982,14 +1119,4 @@ class BetEngine:
             if obs is not None:
                 obs.instant("stage.end", window=n_t)
                 obs.clear_context("stage")
-
-        # final phase: full window until the step budget is spent
-        if first_stage > final_info.stage:
-            carry[:] = (w, state)       # the checkpoint is past the final phase
-            return
-        carry[:] = (w, optimizer.reset_memory(
-            state if self.carry_state else optimizer.init(w)))
-        del w, state
-        self._run_scan_stage(ctx, dataset, optimizer, objective, policy,
-                             final_info, carry, full_data,
-                             eval_full=policy.final_eval_full)
+        return w, state

@@ -94,31 +94,33 @@ def probe_rows(data, rows: int):
     return buf[torch.arange(rows, device=buf.device) % n]
 
 
-def rolling_subwindow(data, fraction: float, t: int):
+def rolling_subwindow(data, fraction: float, t):
     """Rolling contiguous sub-window of a stage view — the Newton-CG
     Hessian subsample (decorrelates Hessian error across iterations
     without re-loading anything; BET's no-resampling property concerns
-    *data access*, not in-memory slicing).  ``t`` is the optimizer's
-    host-side step counter.
+    *data access*, not in-memory slicing).  ``t`` is the optimizer's step
+    counter, a 0-d integer tensor on the data's device (a Python int is
+    taken too); every offset is made from it on the device, so a step
+    never waits on the host.
 
-    A tuple of tensors sharing their leading (example) axis gives row
-    views: ``k = round(fraction * n)`` rows from offset
-    ``t * k mod (n - k + 1)``, the reference's offsets exactly.  A
+    A tuple of tensors sharing their leading (example) axis gives ``k =
+    round(fraction * n)`` rows of each from offset ``t * k mod (n - k +
+    1)``, the reference's rows exactly, gathered by a device index.  A
     ``MaskedWindow`` gives a ``MaskedWindow`` of a static
     ``round(fraction * capacity)`` rows whose valid count is
     ``round(fraction * n_valid)`` (at least 1), from an offset kept inside
     both the valid prefix and the buffer — the reference's one-lane
-    masked semantics, computed on the device.
+    masked semantics.
 
     A ``HostWindows`` subsamples per *lane*: a static ``round(fraction *
-    capacity)`` rows of each lane, from an offset computed on the host from
-    the lane's host count, of which ``k_eff = round(fraction * m_h)``
+    capacity)`` rows of each lane from a device offset made from the
+    lane's host count, of which ``k_eff = round(fraction * m_h)``
     (clipped to [min(m_h, 1), m_h]) are valid, so an empty lane gives no
     row.  The rows are the reference's index for index: ``fraction * m_h``
     is rounded in float32, half to even, as ``jnp.round`` does it on an
     int32 count."""
     if isinstance(data, HostWindows):
-        return _lane_subwindow(data, fraction, int(t))
+        return _lane_subwindow(data, fraction, t)
     if isinstance(data, MaskedWindow):
         cap, m = data.capacity, data.n_valid
         k = max(1, int(round(fraction * cap)))
@@ -130,8 +132,9 @@ def rolling_subwindow(data, fraction: float, t: int):
         return MaskedWindow(data.data[idx], k_eff)
     n = data[0].shape[0]
     k = max(1, int(round(fraction * n)))
-    off = (int(t) * k) % max(1, n - k + 1)
-    return tuple(x[off:off + k] for x in data)
+    idx = (t * k) % max(1, n - k + 1) + torch.arange(k,
+                                                     device=data[0].device)
+    return tuple(x[idx] for x in data)
 
 
 def _lane_rows(lanes: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -143,7 +146,7 @@ def _lane_rows(lanes: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _lane_subwindow(data: "HostWindows", fraction: float,
-                    t: int) -> "HostWindows":
+                    t) -> "HostWindows":
     if data.host_counts is None:
         raise ValueError("a lane subsample needs the lanes' host counts")
     cap = data.capacity
@@ -155,7 +158,7 @@ def _lane_subwindow(data: "HostWindows", fraction: float,
         lim = min(m - k_eff, cap - k)
         offsets.append((t * max(1, k_eff)) % max(1, lim + 1))
         counts.append(k_eff)
-    return HostWindows(data.fields, host_counts=counts, host_offsets=offsets)
+    return HostWindows(data.fields, host_counts=counts, offsets=offsets)
 
 
 def as_host_windows(data) -> "HostWindows":
@@ -200,29 +203,28 @@ class HostWindows:
     device counts are made from them at first use.
 
     A lane's valid rows start at row 0, except in a lane subsample
-    (``rolling_subwindow``), whose ``host_offsets`` say where each lane's
-    rows start; such a view is read through ``lane`` alone, and has no
-    device counts."""
+    (``rolling_subwindow``), whose ``offsets`` say where each lane's rows
+    start, one 0-d device tensor (or int) a lane; such a view is read
+    through ``lane`` alone, and has no device counts."""
 
     def __init__(self, fields, counts: torch.Tensor | None = None,
-                 host_counts=None, host_offsets=None):
+                 host_counts=None, offsets=None):
         if counts is None and host_counts is None:
             raise ValueError("HostWindows needs device or host counts")
         self.fields = tuple(fields)
         self._counts = counts
         self.host_counts = None if host_counts is None \
             else tuple(int(c) for c in host_counts)
-        self.host_offsets = None if host_offsets is None \
-            else tuple(int(o) for o in host_offsets)
-        for per_lane in (self.host_counts, self.host_offsets):
+        self.offsets = None if offsets is None else tuple(offsets)
+        for per_lane in (self.host_counts, self.offsets):
             if per_lane is not None and len(per_lane) != self.num_hosts:
                 raise ValueError(f"{len(per_lane)} per-lane values for "
                                  f"{self.num_hosts} lanes")
 
     @property
     def counts(self) -> torch.Tensor:
-        if self.host_offsets is not None:
-            raise ValueError("a lane subsample's rows start at its host "
+        if self.offsets is not None:
+            raise ValueError("a lane subsample's rows start at its "
                              "offsets; read it through lane(h)")
         if self._counts is None:
             self._counts = _device_ints(self.host_counts,
@@ -230,13 +232,16 @@ class HostWindows:
         return self._counts
 
     def lane(self, h: int) -> tuple:
-        """Lane h's valid rows of every field, as views (no copy)."""
+        """Lane h's valid rows of every field: views, or in a lane
+        subsample the rows gathered from the lane's device offset."""
         if self.host_counts is None:
             raise ValueError("reading a lane on the host needs its host "
                              "count; this view has device counts only")
-        off = self.host_offsets[h] if self.host_offsets else 0
-        return tuple(f[h, off:off + self.host_counts[h]]
-                     for f in self.fields)
+        m = self.host_counts[h]
+        if self.offsets is None:
+            return tuple(f[h, :m] for f in self.fields)
+        idx = self.offsets[h] + torch.arange(m, device=self.fields[0].device)
+        return tuple(f[h][idx] for f in self.fields)
 
     @property
     def num_hosts(self) -> int:

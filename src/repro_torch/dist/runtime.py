@@ -23,9 +23,9 @@ stages still run on the device with the single-host run's host
 transfers, and at each stage end the per-host records (window size,
 loads, uploads) are all-gathered **once** through the communicator —
 never per step — and landed in ``trace.meta["host_stage_records"]``.
-The reference's observability hooks (a recorder on each rebuilt
-prefetcher, the flush's instant and fleet barrier) come with ``obs/``
-(ROADMAP queue A11) and are left out here."""
+With a recorder wired (``ObsSpec``), each rebuilt plane's prefetcher
+emits into its host's lane, and the flush emits ``stage.host_records``
+and, under fleet obs, a ``fleet.barrier`` in every lane."""
 from __future__ import annotations
 
 import dataclasses
@@ -111,10 +111,20 @@ class DistributedDataset:
         """One streaming plane for lane ``lane`` over its owned shards —
         also the lane *rebuild* path: a fresh plane over a reset lane
         re-reads exactly the lane's owned slice."""
-        return StreamingDataset(
+        plane = StreamingDataset(
             self._lane_stores(lane), meter=self.host_meters[lane],
             growth=self.growth, prefetch_workers=self.prefetch_workers,
             windows=[sw.lane(lane) for sw in self.stacked])
+        # re-wire observability onto rebuilt planes: the meter object
+        # survives a lane rebuild (stays wrapped), the Prefetcher does not;
+        # under fleet obs the rebuilt prefetcher emits into its host's lane
+        rec = getattr(self, "_obs_recorder", None)
+        if rec is not None:
+            lane_of = getattr(rec, "lane", None)
+            plane.prefetcher.recorder = \
+                lane_of(lane) if lane_of is not None else rec
+            plane.prefetcher.recorder_tags = {"host": int(lane)}
+        return plane
 
     # ---------------------------------------------------------------- protocol
     @property
@@ -243,3 +253,12 @@ class DistributedBetEngine(BetEngine):
         gathered = self.comm.all_gather_records(records(info.n_t))
         ctx["trace"].meta.setdefault("host_stage_records", []).append(
             {"stage": info.stage, "n_t": info.n_t, "hosts": gathered})
+        if self.recorder is not None:
+            self.recorder.instant("stage.host_records", stage=info.stage,
+                                  n_t=info.n_t, hosts=gathered)
+            # the all-gather is the once-per-stage sync point every host
+            # passes through — under fleet obs, mark it in every lane so
+            # the merger can align per-host clocks (obs/fleet.py)
+            barrier = getattr(self.recorder, "barrier", None)
+            if barrier is not None:
+                barrier(stage=info.stage, n_t=info.n_t)

@@ -33,9 +33,9 @@ and benchmarks.
 
 On the card a lane rebuild zeroes the lane and appends its re-read rows on
 the current stream, as every append does, so the next stage's kernels,
-queued behind them, read the rebuilt lane.  The reference's ``recorder``
-hooks (an instant per elastic event, mirrored into the host's fleet lane)
-come with ``obs/`` (ROADMAP queue A11) and are left out here.
+queued behind them, read the rebuilt lane.  With a recorder wired
+(``ObsSpec``) every elastic event is an instant, mirrored under fleet obs
+into the affected host's own lane.
 """
 from __future__ import annotations
 
@@ -384,6 +384,19 @@ class ElasticBetEngine(DistributedBetEngine):
         if events:
             ctx["trace"].meta.setdefault("elastic_events", []).append(
                 {"stage": info.stage, "n_t": info.n_t, "events": events})
+            if self.recorder is not None:
+                lane_of = getattr(self.recorder, "lane", None)
+                for ev in events:
+                    self.recorder.instant(
+                        f"elastic.{ev.get('kind', 'event')}",
+                        tags={"stage": info.stage}, n_t=info.n_t, **ev)
+                    # under fleet obs, mirror the event into the affected
+                    # host's own lane so its trace shows the fault in-line
+                    host = ev.get("worker", ev.get("lane"))
+                    if lane_of is not None and isinstance(host, int):
+                        lane_of(host).instant(
+                            f"elastic.{ev.get('kind', 'event')}",
+                            tags={"stage": info.stage}, n_t=info.n_t, **ev)
 
     def run(self, dataset, optimizer, objective, policy, **kw):
         trace = super().run(dataset, optimizer, objective, policy, **kw)

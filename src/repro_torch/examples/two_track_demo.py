@@ -4,9 +4,9 @@ trigger points of condition (3); the port of ``examples/two_track_demo.py``,
 printing the same lines.
 
 The whole stack is one declarative spec (``repro_torch.api.RunSpec``); the
-race runs on the device in chunks of doubling length, and the per-step
-values printed here arrived on the host with ⌈log₂ s⌉ transfers per
-racing stage of s steps.
+race runs on the device (on the card, one CUDA graph's WHILE loop a
+racing stage), and the per-step values printed here arrived on the host
+with one transfer a racing stage.
 
     python -m repro_torch.examples.two_track_demo [--device cpu]
 """

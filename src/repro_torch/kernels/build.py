@@ -24,7 +24,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {"linear_grad": CSRC / "linear_grad.cu",
            "ssm_scan": CSRC / "ssm_scan.cu",
            "rglru_scan": CSRC / "rglru_scan.cu",
-           "flash_attention": CSRC / "flash_attention.cu"}
+           "flash_attention": CSRC / "flash_attention.cu",
+           "device_while": CSRC / "device_while.cu"}
 FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

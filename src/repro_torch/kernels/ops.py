@@ -1,9 +1,10 @@
 """Public wrappers around the port's kernels: dispatch by device.
 
 A tensor on the CPU goes to the kernel's plain PyTorch version
-(``ref.py``); a tensor on a CUDA device goes to the hand-written kernel,
-or the call raises — there is no fallback from the card to the plain
-version.
+(``ref.py``), as does a meta tensor within ``plain_on_meta`` (where a
+caller counts a step's operations on meta tensors); a tensor on a CUDA
+device goes to the hand-written kernel, or the call raises — there is
+no fallback from the card to the plain version.
 
 ``flash_attention``, ``ssm_scan`` and ``rglru_scan`` are differentiable,
 as the reference's are: the kernel is the forward pass and the backward
@@ -15,13 +16,29 @@ pass is the VJP of the plain version, recomputed from the saved inputs
 a run on the card proves with it that its main path went through the
 kernels.  Calls served by the plain version on the CPU are not counted,
 nor is the backward pass, which launches no kernel of this package.
+
+``ROUTED`` counts every call of a kernel's wrapper on either route, the
+card's or the plain version's on the CPU: what the reference's ``CALLS``
+counts (its trace-time dispatches), and what the workload sweep's
+``kernel_routed`` claim reads on the CPU, where nothing launches.
+
+``race_loop`` runs the Two-Track race's loop: the WHILE graph of
+``device_while.py`` on the card, the plain loop on the CPU.  A captured
+race step counts its launches once, while it is captured; the card runs
+it once for every step after the first, so ``finish_race_loop`` adds the
+body's launches for each step that Python did not count (all of them
+when ``rerun_race_loop`` launched the graph again), once the caller has
+pulled the step count.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
+import contextvars
 
 import torch
 
+from . import device_while as _dw
 from . import flash_attention as _fa
 from . import linear_grad as _lg
 from . import ref as _ref
@@ -29,17 +46,39 @@ from . import rglru_scan as _rg
 from . import ssm_scan as _ss
 
 CALLS: collections.Counter = collections.Counter()
+ROUTED: collections.Counter = collections.Counter()
 
 
 def reset_calls() -> None:
     CALLS.clear()
+    ROUTED.clear()
+
+
+_PLAIN_ON_META = contextvars.ContextVar("plain_on_meta", default=False)
+
+
+@contextlib.contextmanager
+def plain_on_meta():
+    """Within it, in this thread or task, a meta tensor goes to the plain
+    version too, which then computes nothing; outside, a wrapper refuses
+    it."""
+    token = _PLAIN_ON_META.set(True)
+    try:
+        yield
+    finally:
+        _PLAIN_ON_META.reset(token)
 
 
 def _on_card(name: str, t: torch.Tensor) -> bool:
-    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+    """True for a CUDA tensor, False for a CPU one (and for a meta one
+    within ``plain_on_meta``, which ``ROUTED`` does not count); raises
+    otherwise."""
     kind = t.device.type
+    if kind == "meta" and _PLAIN_ON_META.get():
+        return False
     if kind not in ("cuda", "cpu"):
         raise ValueError(f"{name} runs on 'cuda' or 'cpu', got {t.device}")
+    ROUTED[name] += 1
     return kind == "cuda"
 
 
@@ -146,3 +185,56 @@ def rglru_scan(a, b):
     (B, S, W) -> (B, S, W) in a's dtype — the kernel on the card, the plain
     version on the CPU; differentiable in a and b."""
     return _RGLRUScan.apply(a, b)
+
+
+# ------------------------------------------------------------- race loop
+class _PlainLoop:
+    """The plain loop's result, shaped as a ``device_while.WhileLoop``."""
+    capture_s = 0.0
+    replayable = False
+    counted = 0
+    body: collections.Counter = collections.Counter()
+
+    def __init__(self, carry):
+        self.carry = carry
+
+    def close(self) -> None:
+        pass
+
+
+def race_loop(step, carry, hist, s, done, max_iters: int, keep=()):
+    """Repeat ``carry = step(carry)`` and condition (3) on the histories
+    ``hist`` (3, max_iters) at the device step index ``s`` until the
+    trigger (``done``) or ``max_iters`` steps: one launch of the WHILE
+    graph on the card (nothing read back), the plain loop on the CPU.  The
+    returned loop's ``carry`` holds the last step's carry once the launch
+    has run; pass the loop to ``finish_race_loop`` after reading ``s``.
+    The graph writes its carry in place, never into the memory of a
+    tensor of ``keep``."""
+    if not _on_card("device_while", hist):
+        return _PlainLoop(_ref.race_loop(step, carry, hist, s, done,
+                                         max_iters))
+    before = collections.Counter(CALLS)
+    loop = _dw.WhileLoop(step, carry, hist, s, done, max_iters, keep)
+    loop.body = CALLS - before
+    loop.counted = 2            # step 1 ran eagerly, step 2 was captured
+    CALLS["device_while"] += 1
+    return loop
+
+
+def rerun_race_loop(loop, carry) -> None:
+    """Launch a captured loop again from ``carry`` (its ``s`` and flag
+    reset by the caller), from step 1: every step is a replay."""
+    loop.relaunch(carry)
+    loop.counted = 0
+    CALLS["device_while"] += 1
+
+
+def finish_race_loop(loop, steps: int, close: bool = True) -> None:
+    """Count the captured body's launches for the replays of the
+    ``steps`` the loop's launch ended at that Python did not count, and
+    free the loop unless ``close`` is false (it is launched again)."""
+    for name, n in loop.body.items():
+        CALLS[name] += n * (steps - loop.counted)
+    if close:
+        loop.close()

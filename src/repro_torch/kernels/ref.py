@@ -101,3 +101,29 @@ def rglru_scan(a, b):
         h = a[:, t].to(acc) * h + b[:, t].to(acc)
         ys.append(h.to(a.dtype))
     return torch.stack(ys, dim=1)
+
+
+# ------------------------------------------------------- the race's loop
+def race_condition(hist, s, done, max_iters: int) -> bool:
+    """Condition (3) after the race step that wrote index ``s`` of the
+    histories ``hist`` (3, max_iters): ``done`` is raised when the slow
+    track after ⌊(s+1)/2⌋ steps already beats the fast track after s + 1
+    (``hist[0]`` slow, ``hist[1]`` fast, value after step i at index i);
+    ``s`` and ``done`` are updated in place.  Returns whether another
+    step runs, read on the host."""
+    s1 = s + 1
+    k = torch.clamp(s1 // 2 - 1, min=0)
+    done.copy_((s1 >= 2) & (hist[0, k] < hist[1, s]))
+    s.copy_(s1)
+    return bool(~done & (s1 < max_iters))
+
+
+def race_loop(step, carry: list, hist, s, done, max_iters: int):
+    """The WHILE graph's loop, run eagerly: ``step(carry)``, which replaces
+    the list's carries in place, and the condition, until it says stop; at
+    least one step runs, as the graph's handle defaults to ``max_iters``
+    > 1.  Returns the list, holding the last carry."""
+    while True:
+        step(carry)
+        if not race_condition(hist, s, done, max_iters):
+            return carry

@@ -128,11 +128,10 @@ def time_to_rfvd(trace, f_star: float, tol: float) -> float:
 
 def kernel_calls(trace) -> int:
     """The ``linear_value_grad`` calls a method's trace implies: one per
-    optimizer step (two per race step, whose fast track steps too), and
-    two per race step run past a trigger and discarded."""
+    optimizer step, two per race step, whose fast track steps too (the
+    race stops at its trigger: no step runs past it)."""
     race = sum("f_fast_on_t" in p.extra for p in trace.points)
-    return trace.final().step + 1 + race \
-        + 2 * trace.meta.get("race_overshoot", 0)
+    return trace.final().step + 1 + race
 
 
 def measure(method: str, ds, obj, w0, f_star: float, **kw) -> dict:

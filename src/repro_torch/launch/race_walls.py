@@ -17,7 +17,16 @@ host clock and ended by ``torch.cuda.synchronize()``.  Prints one JSON
 line for each: the tree, the warm-up and the walls in seconds,
 ``host_transfers``, the steps, the final f̂ (equal across checkouts when
 the change keeps the trace) and, on the plane, the last run's metered
-load and blocked seconds."""
+load and blocked seconds.
+
+With ``--lm ARCH`` it times that architecture's two-track LM run instead,
+at full width as ``chip_smoke.py`` runs it (``launch/train.py``'s spec
+on the streaming plane: 512 sequences, batch 8, n0 64, a probe of 16
+rows, 16 steps a racing stage, 8 final steps, AdamW at lr 3e-4;
+qwen3-0.6b at full depth on rows of 1,025 tokens, falcon-mamba-7b at 4
+layers on rows of 257), one warm-up and ``runs`` timed runs; its line
+adds the race graphs' capture seconds a round where the checkout records
+them."""
 from __future__ import annotations
 
 import argparse
@@ -27,6 +36,8 @@ import time
 from pathlib import Path
 
 POLICIES = {"two_track": {"final_steps": 20}, "batch": {"steps": 25}}
+# --lm: (row length less one, layers; None keeps the config's)
+LM_RUNS = {"qwen3-0.6b": (1024, None), "falcon-mamba-7b": (256, 4)}
 
 
 def main() -> None:
@@ -37,6 +48,8 @@ def main() -> None:
                     choices=sorted(POLICIES))
     ap.add_argument("--plane", nargs="+", default=["host"],
                     choices=["host", "plane"])
+    ap.add_argument("--lm", choices=sorted(LM_RUNS),
+                    help="time this architecture's two-track LM run instead")
     args = ap.parse_args()
     sys.path[0] = str(args.tree.resolve() / "src")
     import torch
@@ -50,7 +63,11 @@ def main() -> None:
         t0 = time.perf_counter()
         tr = sess.run()
         torch.cuda.synchronize()
-        return time.perf_counter() - t0, tr
+        return time.perf_counter() - t0, tr, sess
+
+    if args.lm:
+        lm_walls(args, torch, timed)
+        return
 
     for policy in args.policy:
         for plane in args.plane:
@@ -62,10 +79,10 @@ def main() -> None:
                 schedule=api.ScheduleSpec(n0=128, clock={"p": 10.0, "a": 1.0,
                                                          "s": 5.0}),
                 policy=api.PolicySpec(policy, POLICIES[policy]))
-            warmup, _ = timed(spec)
+            warmup, _, _ = timed(spec)
             walls = []
             for _ in range(args.runs):
-                wall, tr = timed(spec)
+                wall, tr, _ = timed(spec)
                 walls.append(wall)
             meter = tr.meta.get("data_plane") or {}
             print(json.dumps({"tree": str(args.tree), "policy": policy,
@@ -77,6 +94,39 @@ def main() -> None:
                               "load_time_s": meter.get("load_time_s"),
                               "blocked_time_s": meter.get("blocked_time_s")}),
                   flush=True)
+
+
+def lm_walls(args, torch, timed) -> None:
+    """The two-track LM run of ``--lm``: one warm-up, ``runs`` timed."""
+    import gc
+    from repro_torch import configs
+    from repro_torch.launch import train
+    seq_len, layers = LM_RUNS[args.lm]
+    tc = train.TrainConfig(
+        schedule="two_track", batch_size=8, seq_len=seq_len, n0=64,
+        corpus_size=512, final_steps=8, lr=3e-4, max_stage_steps=16,
+        eval_rows=16, use_plane=True)
+    spec = train.to_run_spec(configs.get(args.lm), tc)
+    if layers is not None:
+        spec = spec.replace(model=spec.model.replace(
+            overrides={"num_layers": layers}))
+    walls, captures = [], []
+    for i in range(args.runs + 1):
+        torch.cuda.reset_peak_memory_stats()
+        wall, tr, sess = timed(spec)
+        walls.append(wall)
+        captures.append(getattr(sess.engine, "race_capture_s", None))
+        row = {"host_transfers": tr.meta["host_transfers"],
+               "stages": tr.meta["stages"], "steps": len(tr.points),
+               "f_full": tr.final().f_full,
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del sess, tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(json.dumps({"tree": str(args.tree), "lm": args.lm,
+                      "policy": "two_track", "warmup_s": walls[0],
+                      "walls_s": walls[1:], "capture_s": captures, **row}),
+          flush=True)
 
 
 if __name__ == "__main__":

@@ -223,9 +223,9 @@ def attach_dataset(dataset, recorder):
     builds a fresh combined object per call.  ``_obs_recorder`` is stashed
     on the dataset so elastically *rebuilt* lane planes (host loss) re-wire
     their fresh prefetchers inside ``_make_plane``.  When ``recorder`` is
-    a fleet recorder (``repro.obs.fleet``, not ported yet; it has
-    per-host ``lane`` streams), each host's meter and prefetcher emit into that host's own
-    lane instead of the shared stream.
+    a fleet recorder (``obs.fleet.FleetRecorder``, with per-host
+    ``lane`` streams), each host's meter and prefetcher emit into that
+    host's own lane instead of the shared stream.
 
     Single-host ``StreamingDataset``: its one meter and prefetcher.  Plain
     host-slice datasets have no meters; no-op."""

@@ -88,8 +88,10 @@ def armijo_line_search(objective: Objective, params, data, direction, g,
     ok = f_new <= f0 + c1 * alphas * slope
     passed = ok.any()
     first = torch.argmax(ok.to(torch.int32))      # first passing k (0 if none)
-    alpha = torch.where(passed, alphas[first], 0.0)
-    f_new = torch.where(passed, f_new[first], f0)
+    # gathered by a device index: indexing with a 0-d tensor reads it back
+    idx = first.view(1)
+    alpha = torch.where(passed, alphas.index_select(0, idx)[0], 0.0)
+    f_new = torch.where(passed, f_new.index_select(0, idx)[0], f0)
     n = torch.where(passed, first + 1, max_steps)
     return alpha, f_new, n
 

@@ -9,8 +9,10 @@ products; Armijo step along d.
 The Hessian subsample is the *prefix*-rolling sub-window of the window
 rather than an i.i.d. resample — this preserves BET's no-resampling
 property; the paper reports robustness to the subsample choice (App. A.2).
-The step counter ``t`` that rolls it is host-side state (a Python int), so
-slicing the sub-window never waits on the device.
+The step counter ``t`` that rolls it is a 0-d int32 tensor on the
+parameters' device, as in the reference: the sub-window's offset is made
+on the device, so a step never waits on the host and a captured step
+(the race's WHILE graph) reads the current count at every replay.
 """
 from __future__ import annotations
 
@@ -31,14 +33,15 @@ class NewtonCG(BatchOptimizer):
     max_ls_steps: int = 30
 
     def init(self, params):
-        return {"t": 0}
+        return {"t": torch.zeros((), dtype=torch.int32,
+                                 device=params.device)}
 
     def _subsample(self, data, t):
         return rolling_subwindow(data, self.hessian_fraction, t)
 
     def step(self, params, state, objective: Objective, data):
         f0, g = objective.value_and_grad(params, data)
-        t = int(state["t"])
+        t = state["t"]
         hvp = objective.hvp_operator(params, self._subsample(data, t))
 
         # linear CG on H d = -g, d0 = 0

@@ -20,10 +20,9 @@ step/objective factories (kernel-routed for mamba and rglru), build_policy,
 StageCheckpointer, BetEngine — only the corpus and the stage loop differ
 (``BetEngine.run_online``).  Everything runs on ``device`` (the card
 unless the caller asks for the CPU); each tick pulls its generated tokens
-to the host once, to log them.
-
-The reference's ``ObsSpec.health`` detectors come with the observability
-slice and are refused here.
+to the host once, to log them.  With ``ObsSpec.health`` the live
+detectors tap the loop's recorder and the report carries their
+``HealthReport``, as in the reference.
 """
 from __future__ import annotations
 
@@ -103,11 +102,6 @@ def _validate_serve(spec: RunSpec) -> tuple[int, int]:
         raise SpecError("the serve loop publishes stage checkpoints for "
                         "the hot-swap server: CheckpointSpec.directory is "
                         "required")
-    if spec.obs.health:
-        raise SpecError(
-            "ObsSpec.health (the serve loop's live detectors) is not yet "
-            "ported to repro_torch; it comes with the observability slice "
-            "(ROADMAP queue A11)")
     if s.requests_per_tick < 1 or s.prompt_len < 1:
         raise SpecError("requests_per_tick and prompt_len must be >= 1")
     gen = s.gen_tokens or (d.seq_len + 1 - s.prompt_len)
@@ -178,6 +172,11 @@ class ServeTrainLoop:
         self.recorder = EventRecorder()
         attach_server(self.server, self.recorder)
         self.run_report: RunReport | None = None
+        self.health = None
+        if spec.obs.health:
+            from ..obs.health import HealthMonitor
+            self.health = HealthMonitor(slo=spec.obs.slo)
+            self.health.attach(self.recorder)
 
     # ------------------------------------------------------------- serving
     def tick(self) -> bool:
@@ -245,6 +244,10 @@ class ServeTrainLoop:
                                           int(eval_tokens.shape[0]))
         policy = build_policy(spec.policy)
         wired = _attach_traffic(policy, self.store, self.tick)
+        if self.health is not None and wired:
+            # the stall detector's limit is the wired policy's give-up point
+            self.health.set_hold_limit(
+                max(p.max_hold_chunks for p in wired))
         if not wired:
             dataset.close()
             raise SpecError(
@@ -320,6 +323,8 @@ class ServeTrainLoop:
             "stage_table": rr.stage_rows(),
             "serve_events": rr.serve_summary(),
         }
+        if self.health is not None:
+            rep["health"] = self.health.report().to_dict()
         obs = self.spec.obs
         if obs.enabled and obs.dir:
             d = pathlib.Path(obs.dir)
@@ -329,6 +334,8 @@ class ServeTrainLoop:
                 self.recorder.to_chrome_trace(d / "trace.json")
             if obs.report:
                 rr.save(d)
+            if self.health is not None:
+                self.health.report().save(d)
             rep["obs_dir"] = str(d)
         if self.watcher is not None:
             rep["staleness"] = {

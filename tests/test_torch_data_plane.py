@@ -153,7 +153,9 @@ def test_masked_rows_equal_the_host_path_and_the_reference(n_valid):
                 tdw.probe_rows(win, k).numpy(),
                 np.asarray(jdw.probe_rows(jwin, k)))
         for frac, t in ((0.5, 0), (0.5, 3), (0.25, 7), (1.0, 2)):
-            sub = tdw.rolling_subwindow(win, frac, t)
+            # Newton-CG's step counter is a device int32 scalar
+            sub = tdw.rolling_subwindow(win, frac,
+                                        torch.tensor(t, dtype=torch.int32))
             ref = jdw.rolling_subwindow(jdw.as_host_windows(jwin), frac, t)
             np.testing.assert_array_equal(sub.data.numpy(),
                                           np.asarray(ref.fields[0][0]))

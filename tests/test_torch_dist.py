@@ -223,13 +223,16 @@ def test_hessian_subsample_rows_are_the_references(fraction):
     thw = tdw.HostWindows((torch.from_numpy(lanes),), host_counts=counts)
     for t in range(7):
         js = jdw.rolling_subwindow(jhw, fraction, jnp.int32(t))
-        ts = tdw.rolling_subwindow(thw, fraction, t)
+        # Newton-CG's step counter is a device int32 scalar
+        ts = tdw.rolling_subwindow(thw, fraction,
+                                   torch.tensor(t, dtype=torch.int32))
         assert list(ts.host_counts) == np.asarray(js.counts).tolist()
-        # the port copies nothing: each lane's k rows from its offset are
-        # the reference's stacked rows, and lane() reads the valid ones
+        # each lane's k rows from its device offset are the reference's
+        # stacked rows, and lane() gathers the valid ones
         ref = np.asarray(js.fields[0])
         k = ref.shape[1]
-        for h, (off, m) in enumerate(zip(ts.host_offsets, ts.host_counts)):
+        offsets = [int(o) for o in ts.offsets]
+        for h, (off, m) in enumerate(zip(offsets, ts.host_counts)):
             np.testing.assert_array_equal(lanes[h, off:off + k], ref[h])
             np.testing.assert_array_equal(ts.lane(h)[0].numpy(), ref[h, :m])
 

@@ -1,8 +1,10 @@
 """The port's BET engine against the reference, through ``build(RunSpec)``
 on both sides: the schedule, scan-stage clock/access columns and f̂ for
 ``fixed_steps`` and ``batch``, Two-Track trigger steps per stage, the
-transfer contract, and that every optimizer step goes through the
-``linear_value_grad`` wrapper exactly once."""
+transfer contract (one pull a racing stage, as the reference's
+``lax.while_loop``), the race's carry at the trigger, and that every
+optimizer step goes through the ``linear_value_grad`` wrapper exactly
+once."""
 import numpy as np
 import pytest
 import torch
@@ -36,15 +38,13 @@ def _spec(policy, params, *, scale=0.05, optimizer="newton_cg"):
 
 
 def _chunk_end(s):
-    """The cumulative race chunk boundary (2, 4, 8, ...) that step s is in."""
+    """The cumulative chunk boundary (2, 4, 8, ...) that step s was in
+    when the race ran in doubling chunks: what the device loop no longer
+    runs past a trigger."""
     end = 2
     while end < s:
         end *= 2
     return end
-
-
-def _race_chunks(s):
-    return _chunk_end(s).bit_length() - 1
 
 
 def _both(spec):
@@ -95,28 +95,24 @@ def test_two_track_trigger_steps_match_reference():
     np.testing.assert_allclose([p.extra["f_fast_on_t"] for p in racing],
                                [p.extra["f_fast_on_t"] for p in ref_racing],
                                rtol=RTOL_F)
-    # the race pulls once per chunk, at cumulative sizes 2, 4, 8, ...: a
-    # racing stage of s steps costs max(1, ceil(log2 s)) transfers; the
-    # final phase's one chunk costs one more
+    # the race pulls once a racing stage, as the reference's while loop
+    # does; the final phase's one chunk costs one more
     n_race_stages = port.meta["stages"] - 1
     per_stage = [c for s, c in steps_per_stage(port).items()
                  if any(p.stage == s and "f_fast_on_t" in p.extra
                         for p in racing)]
     assert len(per_stage) == n_race_stages == ref.meta["stages"] - 1
-    assert port.meta["host_transfers"] == \
-        sum(_race_chunks(s) for s in per_stage) + 1
-    # every stage triggered (far below max_stage_iters): the steps past the
-    # trigger are the rest of its chunk
-    assert port.meta["race_overshoot"] == \
-        sum(_chunk_end(s) - s for s in per_stage)
+    assert port.meta["host_transfers"] == ref.meta["host_transfers"] == \
+        n_race_stages + 1 == port.meta["stages"]
+    # the loop stops at the trigger: no step runs past it
+    assert port.meta["race_overshoot"] == 0
 
 
 def test_every_optimizer_step_calls_the_kernel_wrapper_once(monkeypatch):
     """On the card, ``ops.CALLS`` counts kernel launches; on the CPU the
     same wrapper serves the plain version, so count its calls here: two
-    per race step (those run past a trigger and discarded included),
-    one per final-phase and batch step — the equality chip_smoke.py
-    asserts on the card."""
+    per race step (none runs past a trigger), one per final-phase and
+    batch step — the equality chip_smoke.py asserts on the card."""
     calls = []
     real = tops.linear_value_grad
 
@@ -130,72 +126,86 @@ def test_every_optimizer_step_calls_the_kernel_wrapper_once(monkeypatch):
               for pol in (("two_track", {"final_steps": 6}),
                           ("batch", {"steps": 5}))]
     implied = sum(2 if "f_fast_on_t" in p.extra else 1
-                  for tr in traces for p in tr.points) \
-        + sum(2 * tr.meta["race_overshoot"] for tr in traces)
+                  for tr in traces for p in tr.points)
+    assert all(tr.meta["race_overshoot"] == 0 for tr in traces)
     assert len(calls) == implied
     assert tops.CALLS["linear_value_grad"] == 0      # the CPU launches nothing
 
 
 @pytest.mark.parametrize("optimizer,overshoot", [("newton_cg", 2), ("gd", 14)])
-def test_race_overshoot_rolls_back_to_the_trigger(optimizer, overshoot,
-                                                  monkeypatch):
+def test_race_overshoot_rolls_back_to_the_trigger(optimizer, overshoot):
     """susy_like triggers mid-chunk (after 6 race steps with Newton-CG, 18
-    with GD): the chunked race runs on to the chunk's end with the slow
-    track frozen on the device from the trigger on.  Everything it returns
-    is bitwise that of a race in chunks of one step (``RACE_DOUBLING``
-    off), which reads condition (3) after every step and freezes
-    nothing."""
+    with GD): a race in doubling chunks ran ``overshoot`` steps past the
+    trigger and rolled the slow track back.  The device loop stops at the
+    trigger: overshoot 0, one pull a racing stage, and each stage's slow
+    carry is bitwise that of as many plain optimizer steps on the stage
+    window from the stage's start, the device step counter of Newton-CG
+    included."""
     spec = P.RunSpec.from_json(_spec("two_track", {"final_steps": 2},
                                      optimizer=optimizer).to_json())
     spec = spec.replace(data=spec.data.replace(dataset="susy_like"))
-    runs = []
-    for single in (False, True):
-        if single:
-            monkeypatch.setattr(tengine, "RACE_DOUBLING", False)
-        sess = P.build(spec, device="cpu")
-        carries, record = [], sess.engine.stage_callback
-        sess.engine.stage_callback = lambda end, record=record, \
-            carries=carries: (carries.append((end.params, end.opt_state)),
-                              record(end))
-        runs.append((sess.run(), carries))
-    (chunked, c_carries), (single, s_carries) = runs
-    assert chunked.meta["race_overshoot"] == overshoot
-    assert single.meta["race_overshoot"] == 0
-    for col in COLUMNS + ("f_window", "f_full"):
-        assert chunked.column(col) == single.column(col), col
-    assert [p.extra for p in chunked.points] == [p.extra for p in single.points]
-    assert torch.equal(chunked.params, single.params)
-    assert len(c_carries) == len(s_carries) == chunked.meta["stages"]
-    for (wc, sc), (ws, ss) in zip(c_carries, s_carries):
-        assert torch.equal(wc, ws)
-        assert sc.keys() == ss.keys()
-        for k in sc:
-            assert torch.equal(torch.as_tensor(sc[k]), torch.as_tensor(ss[k]))
-    # one step per chunk after the first two: s - 1 reads for s race steps
-    stages = chunked.column("stage")
+    sess = P.build(spec, device="cpu")
+    ends, record = [], sess.engine.stage_callback
+    sess.engine.stage_callback = lambda end: (
+        ends.append((end.info, end.params, end.opt_state)), record(end))
+    w = sess.w0.clone()
+    tr = sess.run()
+    assert tr.meta["race_overshoot"] == 0
+    stages = tr.column("stage")
     race = [stages.count(s) for s in sorted(set(stages))][:-1]
-    assert single.meta["host_transfers"] == sum(s - 1 for s in race) + 1
-    assert chunked.meta["host_transfers"] == \
-        sum(_race_chunks(s) for s in race) + 1
+    assert sum(_chunk_end(s) - s for s in race) == overshoot
+    assert tr.meta["host_transfers"] == len(race) + 1
+    assert len(ends) == tr.meta["stages"]
+    opt, obj = sess.optimizer, sess.objective
+    for (info, w_end, st_end), steps in zip(ends, race):
+        win = sess.dataset.window(info.n_t)
+        st = opt.init(w)
+        for _ in range(steps):
+            w, st, _ = opt.step(w, st, obj, win)
+        assert torch.equal(w, w_end)
+        assert st.keys() == st_end.keys()
+        for k in st:
+            assert torch.equal(st[k], st_end[k]), k
 
 
 def test_probe_and_progress_hooks():
+    """``progress`` sees every point and ``probe`` every step's
+    parameters.  A racing stage's parameters come back in its one pull
+    (the buffer ``W``, written at the device step index): each equals
+    the slow track after that many plain optimizer steps from the stage's
+    start."""
     sess = P.build(P.RunSpec.from_json(
         _spec("two_track", {"final_steps": 3}).to_json()), device="cpu")
-    seen = []
+    seen, probed = [], []
+    w = sess.w0.clone()
     tr = sess.run(progress=seen.append,
-                  probe=lambda w: float(np.abs(w).sum()))
-    assert len(seen) == len(tr.points)
+                  probe=lambda p: (probed.append(np.array(p)),
+                                   float(np.abs(p).sum()))[1])
+    assert len(seen) == len(tr.points) == len(probed)
     assert all("probe" in p.extra for p in tr.points)
     np.testing.assert_allclose(tr.points[-1].extra["probe"],
                                float(tr.params.abs().sum()), rtol=1e-6)
     assert [e["n_t"] for e in sess.stage_ends] == \
         [i.n_t for i in sess.stage_plan()]
+    assert tr.meta["host_transfers"] == tr.meta["stages"]
+    stages = tr.column("stage")
+    opt, obj = sess.optimizer, sess.objective
+    i = 0
+    for info in sess.stage_plan()[:-1]:
+        win = sess.dataset.window(info.n_t)
+        st = opt.init(w)
+        for _ in range(stages.count(info.stage)):
+            w, st, _ = opt.step(w, st, obj, win)
+            np.testing.assert_array_equal(probed[i], w.numpy())
+            i += 1
+    assert i == len(tr.points) - 3
 
 
 def test_composed_veto_re_races_the_stage():
     """A veto that holds every racing stage for two rounds: the engine
-    re-races from the current point, as the reference does."""
+    re-races from the current point, as the reference does; each round
+    runs one loop (one capture on the card, or a replay of the kept
+    graph; the plain loop here) and pulls once."""
     class HoldOnce(tengine.ExpansionPolicy):
         name = "hold_once"
 
@@ -215,16 +225,26 @@ def test_composed_veto_re_races_the_stage():
         _spec("two_track", {"final_steps": 2}).to_json()), device="cpu")
     tr = sess.engine.run(sess.dataset, sess.optimizer, sess.objective, policy,
                          w0=sess.w0, eval_data=sess.eval_data)
+    rounds = len(sess.engine.race_capture_s)
     plain = sess.engine.run(sess.dataset, sess.optimizer, sess.objective,
                             tengine.TwoTrack(final_steps=2), w0=sess.w0,
                             eval_data=sess.eval_data)
     assert tr.meta["stages"] == plain.meta["stages"]
     assert len(tr.points) > len(plain.points)
+    # the veto holds every racing stage but the last (its window is the
+    # whole data, and the veto lets it go)
+    racing = sess.engine.stage_infos(policy, sess.dataset.n)[:-1]
+    assert rounds == sum(1 if i.is_final else 2 for i in racing)
+    assert len(sess.engine.race_capture_s) == len(racing)
+    assert tr.meta["host_transfers"] == rounds + 1
+    assert plain.meta["host_transfers"] == len(racing) + 1
+    assert tr.meta["race_overshoot"] == 0
 
 
 def test_two_track_eval_condition_triggers_where_aux_does():
-    """condition="eval" re-evaluates the slow track's f̂_t; on the convex
-    path that equals the line search's own value, so the triggers agree."""
+    """condition="eval" re-evaluates the slow track's f̂_t inside the race
+    step; on the convex path that equals the line search's own value, so
+    the triggers agree."""
     spec = P.RunSpec.from_json(_spec("two_track", {"final_steps": 2}).to_json())
     sess = P.build(spec, device="cpu")
     runs = [sess.engine.run(sess.dataset, sess.optimizer, sess.objective,
@@ -234,3 +254,5 @@ def test_two_track_eval_condition_triggers_where_aux_does():
     assert runs[0].column("stage") == runs[1].column("stage")
     np.testing.assert_allclose(runs[0].column("f_window"),
                                runs[1].column("f_window"), rtol=1e-5)
+    assert runs[0].meta["host_transfers"] == runs[1].meta["host_transfers"] \
+        == runs[0].meta["stages"]

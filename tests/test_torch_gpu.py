@@ -1,7 +1,8 @@
 """Tests of the port that need a CUDA card: the hand-written kernels
 against their float64 plain versions, the scans' and the attention's
-autograd on the card, the moe routing, and the main paths on the card
-against the CPU.  They skip (deciding
+autograd on the card, the moe routing, the main paths on the card
+against the CPU, and the race's WHILE graph against the eager loop with
+its launch counts under replay.  They skip (deciding
 inside each test) where there is no card.
 
 This file imports neither JAX nor the reference, so it runs on a machine
@@ -9,11 +10,14 @@ that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_gpu.py
 """
+import collections
+
 import numpy as np
 import pytest
 import torch
 
 import repro_torch.api as P
+from repro_torch.core import engine
 from repro_torch.kernels import (flash_attention, linear_grad, ops, ref,
                                  rglru_scan, ssm_scan)
 
@@ -799,3 +803,192 @@ def test_pallas_prefill_launches_and_ring_at_full_width():
     dec, _ = T.decode_step(cfg, params, cache,
                            {"tokens": tok[:, 2560:], "position": 2560})
     assert _rel(dec, ref) < 0.03
+
+
+# ------------------------------------------------- the race's WHILE graph
+def _race_spec(optimizer="newton_cg", **data):
+    return P.RunSpec(
+        data=P.DataSpec(dataset="w8a_like", scale=1.0, lam=1e-3, **data),
+        policy=P.PolicySpec("two_track", {"final_steps": 4}),
+        optimizer=P.OptimizerSpec(optimizer, {}),
+        schedule=P.ScheduleSpec(n0=128))
+
+
+def _plain_loop(step, carry, hist, s, done, max_iters, keep=()):
+    return ops._PlainLoop(ref.race_loop(step, carry, hist, s, done,
+                                        max_iters))
+
+
+@pytest.mark.parametrize("optimizer", ["newton_cg", "gd", "lbfgs"])
+def test_while_graph_matches_the_eager_loop_bitwise(optimizer, monkeypatch):
+    """The race captured into a CUDA graph's WHILE node, against the same
+    step run by the plain loop on the card (one host read a step): the
+    same kernels on the same inputs, so the trace and the final carry
+    are bitwise equal; one pull a stage."""
+    _need_card()
+    graph = P.build(_race_spec(optimizer), device="cuda").run()
+    monkeypatch.setattr(ops, "race_loop", _plain_loop)
+    eager = P.build(_race_spec(optimizer), device="cuda").run()
+    for col in ("step", "stage", "window", "time", "accesses", "f_window",
+                "f_full"):
+        assert graph.column(col) == eager.column(col), col
+    assert [p.extra for p in graph.points] == [p.extra for p in eager.points]
+    assert torch.equal(graph.params, eager.params)
+    assert graph.meta["host_transfers"] == graph.meta["stages"]
+
+
+def test_calls_count_every_replay_of_the_captured_step():
+    """B1 is counted once at capture; after the pull the host adds the
+    body's launches for each replay: the counts equal the trace's, over
+    one host and over 4 (one launch a non-empty lane a step)."""
+    _need_card()
+    from repro_torch.launch import methods
+    ops.reset_calls()
+    tr = P.build(_race_spec(), device="cuda").run()
+    racing = tr.meta["stages"] - 1
+    assert ops.CALLS["linear_value_grad"] == methods.kernel_calls(tr)
+    assert ops.CALLS["device_while"] == racing
+    ops.reset_calls()
+    spec = _race_spec(plane="plane", shard_size=64).replace(
+        topology=P.TopologySpec(hosts=4))
+    sess = P.build(spec, device="cuda")
+    tr = sess.run()
+    own = sess.dataset.ownership
+
+    def lanes(n):
+        return sum(own.examples_in_prefix(h, n) > 0
+                   for h in range(own.num_hosts))
+    implied = 0
+    for info in sess.stage_plan():
+        pts = [p for p in tr.points if p.stage == info.stage]
+        race = sum("f_fast_on_t" in p.extra for p in pts)
+        implied += len(pts) * lanes(info.n_t) + race * lanes(info.n_prev)
+    assert ops.CALLS["linear_value_grad"] == implied
+
+
+def test_while_graph_stops_at_the_trigger_on_known_histories():
+    """The condition kernel on the card against the plain condition: a
+    step that writes known f̂ at the device index s; the loop stops at
+    the first s where condition (3) holds, with s and the flag as the
+    plain loop leaves them."""
+    _need_card()
+    slow = torch.tensor([5.0, 3.0, 2.5, 2.0, 1.9, 1.8, 1.7, 1.6],
+                        device="cuda")
+    fast = torch.tensor([4.0, 3.8, 3.6, 3.5, 3.4, 3.3, 3.2, 3.1],
+                        device="cuda")
+    out = {}
+    for route in ("graph", "plain"):
+        hist = torch.zeros((3, 8), device="cuda")
+        s = torch.ones((), dtype=torch.int64, device="cuda")
+        done = torch.zeros((), dtype=torch.bool, device="cuda")
+        hist[0, 0], hist[1, 0] = slow[0], fast[0]
+
+        def step(carry):
+            row = torch.stack([slow.index_select(0, s.view(1))[0],
+                               fast.index_select(0, s.view(1))[0],
+                               carry[0]])
+            hist.index_copy_(1, s.view(1), row.view(3, 1))
+            carry[0] = carry[0] + 1
+            return carry
+
+        carry = [torch.zeros((), device="cuda")]
+        loop = (ops.race_loop if route == "graph" else _plain_loop)(
+            step, carry, hist, s, done, 8)
+        torch.cuda.synchronize()
+        out[route] = (int(s), bool(done), float(loop.carry[0]),
+                      hist.cpu().clone())
+        ops.finish_race_loop(loop, int(s))
+    assert out["graph"][:3] == out["plain"][:3] == (4, True, 3.0)
+    assert torch.equal(out["graph"][3], out["plain"][3])
+
+
+def _tree_equal(a, b) -> bool:
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_tree_equal(a[k], b[k])
+                                             for k in a)
+    return torch.equal(a, b)
+
+
+def test_while_graph_is_replayed_over_the_planes_stages(monkeypatch):
+    """On the plane an LM's windows keep one shape (a masked window over
+    one buffer): the first racing stage captures the graph and every later
+    one replays it (capture 0.0 s), from step 1.  The run is bitwise the
+    plain loop's on the card, and B3's count equals the plain loop's,
+    which launches every step from Python."""
+    _need_card()
+    spec = P.RunSpec(
+        data=P.DataSpec(kind="lm", corpus_size=64, seq_len=32, eval_rows=8,
+                        plane="plane", shard_size=8),
+        model=P.ModelSpec(arch="falcon-mamba-7b", reduced=True,
+                          overrides={"dtype": "float32"}),
+        optimizer=P.OptimizerSpec("adamw_lm", {"lr": 1e-3,
+                                               "batch_size": 4}),
+        policy=P.PolicySpec("two_track", {"final_steps": 2,
+                                          "max_stage_iters": 8}),
+        schedule=P.ScheduleSpec(n0=8, step_cost="batch", wait_on_expand=True,
+                                carry_state=True, clock={"preloaded": 8}))
+    runs = []
+    for route in ("graph", "plain"):
+        if route == "plain":
+            monkeypatch.setattr(ops, "race_loop", _plain_loop)
+        sess = P.build(spec, device="cuda")
+        ops.reset_calls()
+        tr = sess.run()
+        torch.cuda.synchronize()
+        runs.append((tr, list(sess.engine.race_capture_s), dict(ops.CALLS)))
+    (graph, cap, calls), (eager, _, eager_calls) = runs
+    racing = graph.meta["stages"] - 1
+    assert racing >= 3 and len(cap) == racing
+    assert cap[0] > 0.0 and cap[1:] == [0.0] * (racing - 1)
+    for col in ("step", "stage", "window", "f_window", "f_full"):
+        assert graph.column(col) == eager.column(col), col
+    assert [p.extra for p in graph.points] == [p.extra for p in eager.points]
+    assert _tree_equal(graph.params, eager.params)
+    assert graph.meta["host_transfers"] == graph.meta["stages"]
+    assert calls["ssm_scan"] == eager_calls["ssm_scan"] > 0
+    assert calls["device_while"] == racing
+
+
+class _HoldOnce(engine.ExpansionPolicy):
+    """A veto that holds every racing stage for two rounds."""
+    name = "hold_once"
+
+    def stage_begin(self, info):
+        self.rounds = 0
+
+    def plan_steps(self, info, done):
+        return 1
+
+    def should_expand(self, info, records):
+        self.rounds += 1
+        return info.is_final or self.rounds >= 2
+
+
+def test_veto_rounds_replay_the_kept_graph(monkeypatch):
+    """A veto's second race round in a stage replays the graph its first
+    round captured (capture 0.0 s): the run is bitwise the plain loop's
+    on the card, with one pull a round and B1 counted as it launches."""
+    _need_card()
+    runs = []
+    for route in ("graph", "plain"):
+        if route == "plain":
+            monkeypatch.setattr(ops, "race_loop", _plain_loop)
+        sess = P.build(_race_spec(), device="cuda")
+        policy = engine.ComposedPolicy(engine.TwoTrack(final_steps=4),
+                                       vetoes=[_HoldOnce()])
+        ops.reset_calls()
+        tr = sess.engine.run(sess.dataset, sess.optimizer, sess.objective,
+                             policy, w0=sess.w0, eval_data=sess.eval_data)
+        torch.cuda.synchronize()
+        infos = sess.engine.stage_infos(policy, sess.dataset.n)[:-1]
+        runs.append((tr, list(sess.engine.race_capture_s), dict(ops.CALLS)))
+    (graph, cap, calls), (eager, _, eager_calls) = runs
+    want = []
+    for info in infos:
+        want += [True] if info.is_final else [True, False]
+    assert [c > 0.0 for c in cap] == want
+    for col in ("step", "stage", "window", "f_window", "f_full"):
+        assert graph.column(col) == eager.column(col), col
+    assert torch.equal(graph.params, eager.params)
+    assert graph.meta["host_transfers"] == len(want) + 1
+    assert calls["linear_value_grad"] == eager_calls["linear_value_grad"]

@@ -55,6 +55,13 @@ SERVE_MODULES = [
     "repro_torch.obs.report",
 ]
 
+# the race's WHILE graph, observability and the workload sweep
+OBS_MODULES = [
+    "repro_torch.kernels.device_while", "repro_torch.obs.health",
+    "repro_torch.obs.fleet", "repro_torch.obs.regress",
+    "repro_torch.obs.profile", "repro_torch.workloads.sweep",
+]
+
 
 def test_every_module_imports_with_jax_and_repro_blocked():
     code = (
@@ -80,6 +87,7 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     assert set(DIST_MODULES) <= set(names)
     assert set(TRANSFORMER_MODULES) <= set(names)
     assert set(SERVE_MODULES) <= set(names)
+    assert set(OBS_MODULES) <= set(names)
     assert out.stdout.count("\n") == 1         # no module printed a thing
 
 

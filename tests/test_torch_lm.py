@@ -3,8 +3,9 @@ CPU: the model's loss on the reduced falcon-mamba-7b with the reference's
 parameters carried across (float32, and bfloat16 through the ``ml_dtypes``
 path), one train step, ``build(RunSpec lm)`` under ``fixed_steps``, the
 data helpers, the registry and the validation; then, within the port,
-that the chunked Two-Track race returns what a race in chunks of one step
-returns on LM carries, and how many scan launches an LM run implies."""
+that the Two-Track race's device loop leaves LM carries at the trigger
+that equal as many plain train steps, pulls once a racing stage, and how
+many scan launches an LM run implies."""
 import dataclasses
 import math
 
@@ -191,10 +192,11 @@ def _race_calls(monkeypatch):
 
 def test_lm_chunked_race_equals_a_race_of_single_steps(monkeypatch):
     """Two-Track on LM carries (dicts of parameters and AdamW moments):
-    the chunked race returns bitwise what a race in chunks of one step
-    (``RACE_DOUBLING`` off) returns, and the scan runs
-    num_layers times per forward pass the traces and the overshoot imply
-    (per race step: two train steps, each a forward pass and its
+    each racing stage's slow carry is bitwise that of as many plain train
+    steps on the stage window from the stage's start (the race's loop
+    stops at the trigger, its device step counters included), and the
+    scan runs num_layers times per forward pass the trace implies (per
+    race step: two train steps, each a forward pass and its
     rematerialization in the backward, and three f̂ probes; per final
     step: one train step, two passes, and one f̂ probe) — the count
     chip_smoke.py holds the card's launches to."""
@@ -203,44 +205,42 @@ def test_lm_chunked_race_equals_a_race_of_single_steps(monkeypatch):
                       "condition": "eval", "final_eval_full": True},
         n0=8).to_json())
     calls = _race_calls(monkeypatch)
-    runs = []
-    for single in (False, True):
-        if single:
-            monkeypatch.setattr(tengine, "RACE_DOUBLING", False)
-        sess = P.build(spec, device="cpu")
-        ends, record = [], sess.engine.stage_callback
-        sess.engine.stage_callback = lambda e, record=record, ends=ends: (
-            ends.append((e.params, e.opt_state)), record(e))
-        del calls[:]
-        tr = sess.run()
-        runs.append((tr, ends, len(calls)))
-    (chunked, c_ends, c_calls), (single, s_ends, s_calls) = runs
-    for col in ("step", "stage", "window", "time", "accesses", "f_window",
-                "f_full"):
-        assert chunked.column(col) == single.column(col), col
-    for (cw, cs), (sw, ss) in zip(c_ends, s_ends):
-        for a, b in zip(tree_leaves((cw, cs)), tree_leaves((sw, ss))):
+    sess = P.build(spec, device="cpu")
+    ends, record = [], sess.engine.stage_callback
+    sess.engine.stage_callback = lambda e: (
+        ends.append((e.info, e.params, e.opt_state)), record(e))
+    w = sess.w0
+    st = sess.optimizer.init(w)
+    tr = sess.run()
+    n = len(calls)
+    assert tr.meta["race_overshoot"] == 0
+    stages = tr.column("stage")
+    race_steps = [stages.count(s) for s in sorted(set(stages))][:-1]
+    opt, obj = sess.optimizer, sess.objective
+    for (info, w_end, st_end), steps in zip(ends, race_steps):
+        win = sess.dataset.window(info.n_t)
+        for _ in range(steps):
+            w, st, _ = opt.step(w, st, obj, win)
+        for a, b in zip(tree_leaves((w, st)), tree_leaves((w_end, st_end))):
             assert torch.equal(a, b)
-    assert single.meta["race_overshoot"] == 0
     layers = sess.model_config.num_layers
-    for tr, n in ((chunked, c_calls), (single, s_calls)):
-        race = sum("f_fast_on_t" in p.extra for p in tr.points) \
-            + tr.meta["race_overshoot"]
-        final = sum("f_fast_on_t" not in p.extra for p in tr.points)
-        assert n == layers * (7 * race + 3 * final)
+    race = sum("f_fast_on_t" in p.extra for p in tr.points)
+    final = sum("f_fast_on_t" not in p.extra for p in tr.points)
+    assert n == layers * (7 * race + 3 * final)
 
 
 def test_lm_race_pulls_log2_times_per_stage_and_keeps_no_snapshot(
         monkeypatch):
-    """A racing stage of s steps pulls ⌈log₂ s⌉ times (chunks end at 2, 4,
-    8, 16), and no slow-track carry outlives the race's need for it: at
-    most four parameter trees made by a step are alive at once (the stage
-    start, the old and new slow carry, the fast carry), whatever the
-    chunk size; a snapshot per step of the chunk from 8 to 16 held ten."""
+    """A racing stage pulls once, however many steps it runs (a race in
+    doubling chunks pulled ⌈log₂ s⌉ times), and no slow-track carry
+    outlives the race's need for it: at most four parameter trees made by
+    a step are alive at once (the stage start, the old and new slow carry,
+    the fast carry)."""
     import weakref
 
     from repro_torch.api import lm as tlm
     assert not hasattr(tengine, "RACE_SNAPSHOT_BYTES")
+    assert not hasattr(tengine, "RACE_DOUBLING")
     spec = P.RunSpec.from_json(_lm_spec(
         "two_track", {"final_steps": 2, "max_stage_iters": 16,
                       "condition": "eval", "final_eval_full": True},
@@ -258,10 +258,11 @@ def test_lm_race_pulls_log2_times_per_stage_and_keeps_no_snapshot(
     tr = sess.run()
     stages = tr.column("stage")
     race = [stages.count(s) for s in sorted(set(stages))][:-1]
-    assert race[0] == 16                 # the chunk from 8 to 16 ran
+    assert race[0] == 16                 # a long stage: 4 doubling chunks
     pulls = [b["transfers"] - a["transfers"] for a, b in
              zip([{"transfers": 0}] + sess.stage_ends, sess.stage_ends)]
-    assert pulls[:-1] == [math.ceil(math.log2(s)) for s in race]
+    assert pulls == [1] * len(race) + [1]
+    assert tr.meta["host_transfers"] == tr.meta["stages"]
     assert tr.meta["race_overshoot"] == 0
     assert max(alive) <= 4
 

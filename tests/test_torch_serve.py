@@ -357,11 +357,20 @@ def test_build_loop_validates_serve_geometry(tmp_path):
 
 
 def test_build_loop_refuses_health_naming_the_observability_slice(tmp_path):
+    """Once refused as the observability slice's: the loop's live
+    detectors tap its recorder, the stall detector's limit is the
+    traffic policy's give-up point, and the report carries the
+    HealthReport, which lands in the obs directory."""
     spec = _serve_spec(tmp_path).replace(
-        obs=ObsSpec(enabled=True, health=True))
-    with pytest.raises(SpecError, match="not yet ported") as e:
-        build_loop(spec, device="cpu")
-    assert "observability slice (ROADMAP queue A11)" in str(e.value)
+        obs=ObsSpec(enabled=True, health=True, dir=str(tmp_path / "obs")))
+    loop = build_loop(spec, device="cpu")
+    assert loop.health is not None
+    rep = loop.run()
+    assert loop.health.detector("expansion_stall").max_hold_chunks == \
+        spec.policy.params.get("max_hold_chunks", 10_000)
+    assert rep["health"] == loop.health.report().to_dict()
+    assert rep["health"]["events_seen"] > 0
+    assert (tmp_path / "obs" / "health.json").exists()
 
 
 def test_check_resume_spec_flags_critical_divergence(tmp_path):

@@ -57,15 +57,16 @@ LM = dict(data=R.DataSpec(kind="lm"),
     # once refused as the moe slice's; the moe family now builds it
     (dict(LM, model=R.ModelSpec(arch="granite-moe-1b-a400m", reduced=True)),
      None),
-    # the plane, checkpoints, multiple hosts, the elastic runtime and
-    # serving are ported: what stays refused is the tiered corpus and
-    # observability (the fleet recorder of a multi-host run too); a serve
+    # the plane, checkpoints, multiple hosts, the elastic runtime,
+    # serving and observability are ported: what stays refused is the
+    # tiered corpus; an observed spec (the fleet recorder of a multi-host
+    # run too) builds and runs in both packages with equal claims; a serve
     # spec, also of an elastic multi-host run or an LM on the plane, is
     # refused by build as the reference refuses it, pointing at build_loop
     (dict(data=R.DataSpec(plane="plane", tiering=R.TieringSpec(
         enabled=True, hbm_bytes=1))), "tiered-corpus slice"),
     (dict(data=R.DataSpec(plane="plane"), topology=R.TopologySpec(hosts=2),
-          obs=R.ObsSpec(enabled=True, fleet=True)), "observability slice"),
+          obs=R.ObsSpec(enabled=True, fleet=True)), "observed"),
     (dict(data=R.DataSpec(tiering=R.TieringSpec(enabled=True, hbm_bytes=1))),
      "tiered-corpus slice"),
     (dict(data=R.DataSpec(plane="plane"), topology=R.TopologySpec(hosts=4),
@@ -76,14 +77,14 @@ LM = dict(data=R.DataSpec(kind="lm"),
               plane="plane", tiering=R.TieringSpec(enabled=True,
                                                    hbm_bytes=1))),
      "tiered-corpus slice"),
-    (dict(obs=R.ObsSpec(enabled=True)), "observability slice"),
+    (dict(obs=R.ObsSpec(enabled=True)), "observed"),
     (dict(serve=R.ServeSpec(enabled=True)), "build_loop"),
     (dict(LM, data=R.DataSpec(kind="lm", plane="plane"),
           model=R.ModelSpec(arch="falcon-mamba-7b"),
           serve=R.ServeSpec(enabled=True)), "build_loop"),
-    # traffic_driven is registered now; observed, it still waits
+    # traffic_driven is registered; observed, it runs as the reference's
     (dict(policy=R.PolicySpec("traffic_driven"),
-          obs=R.ObsSpec(enabled=True)), "observability slice"),
+          obs=R.ObsSpec(enabled=True)), "observed"),
     # one torch.distributed process per host: refused before any process
     # group is asked for, convex and LM alike
     (dict(data=R.DataSpec(plane="plane"),
@@ -100,6 +101,18 @@ def test_unported_branches_raise_spec_error(change, needle):
         sess = P.build(spec, device="cpu")
         assert sess.model_config.family == "moe"
         sess.close()
+        return
+    if needle == "observed":
+        ref = R.build(R.RunSpec.from_json(spec.to_json()))
+        ref_tr = ref.run()
+        sess = P.build(spec, device="cpu")
+        tr = sess.run()
+        assert type(sess.recorder).__name__ == type(ref.recorder).__name__
+        # but overlap_ge_half, a comparison of wall seconds
+        got, want = sess.run_report().claims(), ref.run_report().claims()
+        got.pop("overlap_ge_half"), want.pop("overlap_ge_half")
+        assert got == want
+        assert tr.meta["host_transfers"] == ref_tr.meta["host_transfers"]
         return
     if needle == "build_loop":
         # the reference's own refusal, in both packages, naming the front

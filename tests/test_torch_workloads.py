@@ -2,15 +2,13 @@
 ``arch@scenario`` grammar (the reference's own test cases, mirrored), the
 composed RunSpecs equal to the reference's through ``to_dict()``, family
 resolution, the registry, ``repro_torch.api.run``; preset runs through
-``build(RunSpec)`` whose claims equal the reference sweep's and whose
+the port's sweep whose claims equal the reference sweep's, runs whose
 float32 trajectories equal the reference's; the qwen2-vl preset failing
 as the reference's does; and ``launch/train.py``'s specs and CLI."""
 from __future__ import annotations
 
 import json
 import math
-import sys
-from pathlib import Path
 
 import jax
 import numpy as np
@@ -31,9 +29,7 @@ from repro_torch.launch import train as ttrain
 from repro_torch.workloads import (FAMILIES, PRESETS, SHORT, describe,
                                    family_of_config, get_workload, parse,
                                    resolve_family, workload_spec)
-
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-import chip_smoke  # noqa: E402
+from repro_torch.workloads import run_preset as trun_preset
 
 pytestmark = pytest.mark.tier1
 
@@ -215,18 +211,20 @@ def test_run_mamba_preset_routes_through_the_scan_wrapper(monkeypatch):
 
 @pytest.mark.parametrize("name", RUN_PRESETS)
 def test_preset_claims_equal_the_reference_sweeps(name, tmp_path):
-    """``api.run(name)`` on the CPU, its claims computed as chip_smoke.py
-    computes them (the reference sweep's formulas), equal to the claims
-    of the reference's own sweep on the same preset."""
-    want = run_preset(name, tmp_path)
+    """The port's sweep (``workloads.run_preset``) on the CPU: its claims
+    equal to the claims of the reference's own sweep on the same preset,
+    all true."""
+    want = run_preset(name, tmp_path / "ref")
     assert want.error is None, want.error
-    session = P.run(name, device="cpu")
-    preset = get_workload(name)
-    got = chip_smoke.preset_result(preset, FAMILIES, session, {})
-    assert set(got["claims"]) <= set(want.claims)
-    assert got["claims"] == {k: want.claims[k] for k in got["claims"]}
-    assert all(got["claims"].values())
-    assert (got["stages"], got["transfers"]) == (want.stages, want.transfers)
+    got = trun_preset(name, tmp_path / "port", device="cpu")
+    assert got.error is None, got.error
+    claims, want_claims = dict(got.claims), dict(want.claims)
+    # overlap_ge_half compares load and compute wall seconds
+    claims.pop("overlap_ge_half", None), want_claims.pop("overlap_ge_half",
+                                                         None)
+    assert claims == want_claims
+    assert all(got.claims.values())
+    assert (got.stages, got.transfers) == (want.stages, want.transfers)
 
 
 @pytest.mark.parametrize("name", RUN_PRESETS)
@@ -264,15 +262,17 @@ def test_qwen2_vl_preset_fails_as_the_references():
 
 @pytest.mark.parametrize("name,needle", [
     ("recurrentgemma@serve", "repro_torch.serve.build_loop"),
-    ("yi@3stages-obs", "observability slice (ROADMAP queue A11)"),
+    ("yi@3stages-obs", "run.meta"),
 ], ids=["recurrentgemma@serve-serve slice (ROADMAP queue A11)",
         "yi@3stages-obs-observability slice (ROADMAP queue A11)"])
 def test_serve_and_obs_presets_are_refused_naming_their_slice(
         name, needle, tmp_path, monkeypatch):
-    """The obs preset waits for its slice.  The serve preset, once refused
-    as the serve slice's, is refused by ``build`` as the reference refuses
-    it, naming ``build_loop``; ``run`` routes it there (its checkpoint
-    directory is relative, so it runs in tmp_path)."""
+    """Both presets, once refused as their slices', run.  The serve
+    preset is refused by ``build`` as the reference refuses it, naming
+    ``build_loop``; ``run`` routes it there (its checkpoint directory is
+    relative, so it runs in tmp_path).  The obs preset runs observed,
+    three stages and more, one pull a stage, its RunReport's claims
+    true."""
     if name.endswith("@serve"):
         spec = get_workload(name).spec()
         with pytest.raises(P.SpecError) as e:
@@ -284,9 +284,14 @@ def test_serve_and_obs_presets_are_refused_naming_their_slice(
         assert loop.server.requests_completed == \
             loop.server.requests_started > 0
         return
-    with pytest.raises(P.SpecError, match="not yet ported") as e:
-        P.run(name, device="cpu")
-    assert needle in str(e.value)
+    session = P.run(name, device="cpu")
+    tr = session.trace
+    assert session.recorder is not None and tr.meta["stages"] >= 3
+    assert tr.meta["host_transfers"] == tr.meta["stages"]
+    assert [e for e in session.recorder.event_dicts()
+            if e["name"] == needle]
+    claims = session.run_report().claims()
+    assert claims["le_one_transfer_per_stage"] is True
 
 
 # ------------------------------------------------------------- launch/train
