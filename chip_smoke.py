@@ -171,6 +171,22 @@ The race on the device and observability (C4, A11), right after 3a:
     at 4 hosts: a lane file a host, the merged trace causal at every
     barrier, health's detections.  Each new phase prints its seconds.
 
+The tiered corpus (A11 ``data/tiers/``: a hot window under an HBM byte
+budget over a pinned host ring over shard stores), its checks failing
+the run at its end:
+ 3p. w8a_like's width at 2^22 rows (5.05 GB, 256 shards of 16,384 rows
+    in a memory store) under ``TieringSpec(hbm_bytes=corpus / 4)``:
+    Newton-CG, fixed_steps 200/800 from n0 2^16, growth 2, observed.
+    One line: the wall, ``tier_report()`` and both meters, B1's launches
+    beside the count the trace implies, ``max_memory_allocated`` beside
+    the hot window and one staged segment and the step's workspace, the
+    synchronizes inside the commits (none), and BENCH_scale.json's twelve
+    claims (bench_scale.py's definitions, kept here), all of which must
+    hold.  Then the same corpus with the whole of it in the budget,
+    bitwise the untiered plane (f̂ on the window, the columns, the final
+    w), and a kill-and-resume of a rotating run at 2^18 rows, bitwise the
+    uninterrupted one; the phase's seconds.
+
 Then the ``{"kernels": [...]}`` line (B1–B4 and the WHILE graph), and
 last ``{"ok": true, ...}``.
 """
@@ -186,6 +202,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -1712,14 +1729,18 @@ def timed_checkpoints(torch, sess, rec: dict) -> None:
     ck.save, ck.restore = timed_save, timed_restore
 
 
-def kill_and_resume(torch, rt, spec, kill_stage: int, cols) -> dict:
+def kill_and_resume(torch, rt, spec, kill_stage: int, cols,
+                    tiered: bool = False) -> dict:
     """``spec`` run whole, then run with stage checkpoints in a temporary
     directory and killed after ``kill_stage``, then resumed from disk in a
     fresh session (``resume_session``): the stitched run held bitwise
     against the whole one (the columns, extras, transfers, overshoot and
     the final parameters' checksum), the rewarm record the stage's
     window, the kernels' launches of the two pieces summing to the whole
-    run's.  The directory is deleted at the end."""
+    run's.  A ``tiered`` run's rewarm is its checkpointed hot window, at
+    most ``hot_cap`` rows, and its resumed sweep re-reads what the lost
+    host ring held, so of the meters only the accesses must equal the
+    whole run's.  The directory is deleted at the end."""
     api, ops = rt["api"], rt["ops"]
     sess = api.build(spec, device="cuda")
     torch.cuda.synchronize()
@@ -1765,6 +1786,7 @@ def kill_and_resume(torch, rt, spec, kill_stage: int, cols) -> dict:
         launches["resumed"] = dict(ops.CALLS)
         points = resumed.restored.trace_points()
         n_t = resumed.restored.n_t
+        hot_cap = getattr(resumed.dataset, "hot_cap", None)
         left = sorted(os.listdir(d))
     differ = bitwise_diff(run_record(tr, cols, before=points),
                           run_record(whole, cols))
@@ -1789,14 +1811,21 @@ def kill_and_resume(torch, rt, spec, kill_stage: int, cols) -> dict:
     if differ:
         fail_later(f"resume of {spec.name}: differs from the whole run in "
                    f"{differ}")
-    if rewarm.get("examples_loaded") != n_t:
+    if tiered:
+        row["hot_cap"] = hot_cap
+        if not rewarm.get("examples_loaded") == \
+                rewarm.get("rewarm_examples") <= hot_cap:
+            fail_later(f"resume of {spec.name}: rewarm {rewarm}, the hot "
+                       f"window holds {hot_cap} rows")
+    elif rewarm.get("examples_loaded") != n_t:
         fail_later(f"resume of {spec.name}: rewarm loaded "
                    f"{rewarm.get('examples_loaded')} examples, the stage's "
                    f"window is {n_t}")
     if pieces != launches["whole"]:
         fail_later(f"resume of {spec.name}: launches {pieces} in two "
                    f"pieces, {launches['whole']} whole")
-    for k in ("examples_loaded", "examples_uploaded", "examples_accessed"):
+    for k in ("examples_accessed",) if tiered else (
+            "examples_loaded", "examples_uploaded", "examples_accessed"):
         if tr.meta["data_plane"][k] != whole.meta["data_plane"][k]:
             fail_later(f"resume of {spec.name}: {k} "
                        f"{tr.meta['data_plane'][k]} against the whole run's "
@@ -3328,6 +3357,242 @@ def serve_card_vs_cpu_phase(torch, rt, card: str = "cuda") -> dict:
 # SASS opcodes that show which units a kernel runs on: HGMMA (wgmma),
 # UTMALDG (TMA loads), SYNCS (mbarrier waits), HMMA and LDSM (mma.sync
 # and ldmatrix), MUFU.EX2 (the SFU's exp2)
+# ------------------------------------------------------------ tiered corpus
+# 3p: BET when disk access is constrained.  w8a_like's rows (300 float32
+# features and a label, 1,204 bytes) at 2^22 rows, about 5.05 GB, in a
+# memory store of 256 shards, under an HBM budget of a quarter of it: the
+# hot window holds 2^20 rows, and the stages beyond it are swept in four
+# (the final stage) and two disjoint segments.  The inner steps are many so
+# that each hot segment's compute outlasts the staging of the next one
+# from the store (the BENCH_scale claims ask that half of it hide).
+TIER_N = 1 << 22
+TIER_SHARD = 16384
+TIER_N0 = 1 << 16
+TIER_RATIO = 4
+TIER_POLICY = {"inner_steps": 200, "final_steps": 800}
+# the full-budget run and the untiered plane it is held to bitwise, and
+# the kill-and-resume at 2^18 rows: shorter runs
+TIER_SHORT = {"inner_steps": 20, "final_steps": 40}
+TIER_RESUME_N = 1 << 18
+TIER_RESUME_POLICY = {"inner_steps": 8, "final_steps": 16}
+TIER_ROW_BYTES = 300 * 4 + 4
+# the step's own device temporaries beside the hot window and the staged
+# segment, per hot row: Newton-CG's Hessian subsample (its rows of X and
+# y); its batched Armijo search, which evaluates all its candidate steps
+# in one GEMM and holds up to TIER_LS_ARRAYS (rows, candidates) float32
+# arrays at once (margins, losses); TIER_VECTORS float32 vectors
+# (curvatures, the CG terms); B1's scratch and the eval probe within
+# TIER_SLACK
+TIER_LS_ARRAYS = 4
+TIER_VECTORS = 16
+TIER_SLACK = 64 * 2**20
+
+
+def tiered_spec(api, n: int, hbm_bytes, policy: dict, *, obs: bool = False):
+    """w8a_like at ``n`` rows in a memory store of 16,384-row shards,
+    squared hinge, Newton-CG (the Hessian on max(0.1, 600 / n) of the
+    rows), ``fixed_steps`` from n0 = min(2^16, n / 4) by growth 2, tiered
+    under ``hbm_bytes`` (None: the untiered plane)."""
+    tiering = api.TieringSpec() if hbm_bytes is None else \
+        api.TieringSpec(enabled=True, hbm_bytes=int(hbm_bytes))
+    return api.RunSpec(
+        data=api.DataSpec(dataset="w8a_like", scale=n / 8192,
+                          plane="plane", store="memory",
+                          shard_size=TIER_SHARD, tiering=tiering),
+        policy=api.PolicySpec("fixed_steps", policy),
+        optimizer=api.OptimizerSpec(
+            "newton_cg", {"hessian_fraction": min(1.0, max(0.1, 600 / n))}),
+        schedule=api.ScheduleSpec(n0=min(TIER_N0, n // 4)),
+        obs=api.ObsSpec(enabled=obs))
+
+
+@contextlib.contextmanager
+def commit_syncs(torch, corpus):
+    """Count the synchronizes (device, stream or event) the driver makes
+    inside the corpus's commits; the stager thread's own waits are not
+    counted."""
+    local = threading.local()
+    count = {"syncs": 0, "commits": 0}
+    commit = corpus._commit_staged
+
+    def counted():
+        local.on = True
+        count["commits"] += 1
+        try:
+            return commit()
+        finally:
+            local.on = False
+
+    def counting(fn):
+        def wrapped(*a, **k):
+            if getattr(local, "on", False):
+                count["syncs"] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    saved = [(owner, name, getattr(owner, name)) for owner, name in (
+        (torch.cuda, "synchronize"), (torch.cuda.Stream, "synchronize"),
+        (torch.cuda.Event, "synchronize"))]
+    for owner, name, fn in saved:
+        setattr(owner, name, counting(fn))
+    corpus._commit_staged = counted
+    try:
+        yield count
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+        del corpus._commit_staged
+
+
+def scale_claims(sess, tr, n: int, bit_compatible: bool) -> dict:
+    """BENCH_scale.json's twelve claims (benchmarks/bench_scale.py's
+    definitions, kept here) over a tiered session's meters and its event
+    stream's RunReport."""
+    ds = sess.dataset
+    snap, tier = ds.meter.snapshot(), ds.tier_meter.snapshot()
+    report = sess.run_report()
+    ev, ev_tiers = report.claims(), report.tier_summary()
+    return {
+        "corpus_ge_4x_budget": n >= 4 * ds.hot_cap,
+        "trains_end_to_end": len(tr.points) > 0
+        and int(tr.points[-1].window) == n,
+        "overlap_ge_half": snap["overlap_fraction"] >= 0.5,
+        "staging_overlap_ge_half": tier["staging_overlap"] >= 0.5,
+        "zero_resident_reupload": tier["resident_reuploads"] == 0,
+        "each_example_loaded_once": snap["examples_loaded"] == n,
+        "no_ring_evictions_unbounded": tier["evictions"] == 0,
+        "trajectory_bit_compatible_with_untiered": bit_compatible,
+        "events_overlap_ge_half": ev["overlap_ge_half"],
+        "events_zero_resident_reupload": ev["zero_resident_reupload"]
+        and ev_tiers is not None and ev_tiers["resident_reuploads"] == 0,
+        "events_each_example_loaded_once": ev["each_example_loaded_once"],
+        "events_match_meter": report.matches_meter(snap),
+    }
+
+
+def fresh_card(torch) -> int:
+    """Free what the last run left and return the bytes still allocated,
+    with the peak counter reset to them."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def tiered_phase(torch, rt, n: int = TIER_N, resume_n: int = TIER_RESUME_N,
+                 policy: dict = TIER_POLICY, short: dict = TIER_SHORT,
+                 resume_policy: dict = TIER_RESUME_POLICY) -> dict:
+    """3p: ``n`` rows under an HBM budget of a quarter of the corpus,
+    through ``api.build(spec, device="cuda")`` with the launch counts
+    zeroed just before the run and read just after; then a full-budget run
+    of the same corpus against the untiered plane (bitwise) and a
+    kill-and-resume of a rotating run at ``resume_n`` rows (bitwise).
+    Returns the tiered run's row; every check fails the run at its end."""
+    api, ops, methods = rt["api"], rt["ops"], rt["methods"]
+    t_phase = time.perf_counter()
+    corpus_bytes = n * TIER_ROW_BYTES
+    hbm = corpus_bytes // TIER_RATIO
+    base = fresh_card(torch)
+    t0 = time.perf_counter()
+    sess = api.build(tiered_spec(api, n, hbm, policy, obs=True),
+                     device="cuda")
+    build_s = time.perf_counter() - t0
+    ds = sess.dataset
+    torch.cuda.synchronize()
+    ops.reset_calls()
+    with commit_syncs(torch, ds) as syncs:
+        t0 = time.perf_counter()
+        tr = sess.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(ops.CALLS)
+    implied = methods.kernel_calls(tr)
+    peak = torch.cuda.max_memory_allocated() - base
+    hot_cap = ds.hot_cap
+    seg_bytes = hot_cap * TIER_ROW_BYTES
+    hessian = sess.optimizer.hessian_fraction
+    work = int(math.ceil(hessian * hot_cap)) * TIER_ROW_BYTES + 4 * hot_cap \
+        * (TIER_LS_ARRAYS * sess.optimizer.max_ls_steps + TIER_VECTORS) \
+        + TIER_SLACK
+    tier = ds.tier_meter.snapshot()
+    snap = ds.meter.snapshot()
+    stages = tr.column("stage")
+
+    # the same corpus with the whole of it in the budget, against the
+    # untiered plane: bitwise f̂ on the window, the columns and the final w
+    pair = {}
+    for name, hb in (("full_budget", corpus_bytes), ("untiered", None)):
+        fresh_card(torch)
+        t0 = time.perf_counter()
+        s2 = api.build(tiered_spec(api, n, hb, short), device="cuda")
+        t2 = s2.run()
+        torch.cuda.synchronize()
+        pair[name] = {"trace": t2, "wall_s": time.perf_counter() - t0,
+                      "mode": getattr(s2.dataset, "mode", "plane"),
+                      "params": checksum(torch, rt, t2.params)}
+        del s2
+    cols = ("step", "stage", "window", "time", "accesses", "f_window")
+    differ = [c for c in cols if pair["full_budget"]["trace"].column(c)
+              != pair["untiered"]["trace"].column(c)]
+    if pair["full_budget"]["params"] != pair["untiered"]["params"]:
+        differ.append("params")
+    claims = scale_claims(sess, tr, n, bit_compatible=not differ)
+    row = {
+        "path": "tiered", "n": n, "d": 300, "row_bytes": TIER_ROW_BYTES,
+        "corpus_bytes": corpus_bytes, "hbm_bytes": hbm, "hot_cap": hot_cap,
+        "shard_size": TIER_SHARD, "policy": policy, "build_s": build_s,
+        "wall_s": wall, "stages": len(set(stages)),
+        "steps_per_stage": [stages.count(k) for k in sorted(set(stages))],
+        "tier_report": ds.tier_report(), "meter": snap,
+        "launches": launches.get("linear_value_grad", 0),
+        "implied_launches": implied,
+        "max_memory_allocated": peak,
+        "hbm_plus_segment": hbm + seg_bytes,
+        "workspace": peak - 2 * seg_bytes, "workspace_bound": work,
+        "commit_syncs": syncs, "host_transfers": tr.meta["host_transfers"],
+        "f_window_final": tr.final().f_window,
+        "f_full_final": tr.final().f_full, "claims": claims,
+        "full_budget": {k: {"wall_s": v["wall_s"], "mode": v["mode"],
+                            "steps": len(v["trace"].points)}
+                        for k, v in pair.items()},
+        "full_budget_differs_from_untiered": differ}
+    del sess, tr, pair
+    emit(row)
+    if not all(claims.values()):
+        fail_later(f"tiered: claims {[k for k, v in claims.items() if not v]}"
+                   f" do not hold")
+    if row["launches"] != implied:
+        fail_later(f"tiered: B1 launched {row['launches']} times, the trace "
+                   f"implies {implied}")
+    if syncs["syncs"] or not syncs["commits"]:
+        fail_later(f"tiered: {syncs['syncs']} synchronizes in "
+                   f"{syncs['commits']} commits")
+    if not peak <= hbm + seg_bytes + work:
+        fail_later(f"tiered: peak {peak} bytes above the budget "
+                   f"{hbm} + a segment {seg_bytes} + workspace {work}")
+    if tier["resident_reuploads"] or snap["examples_loaded"] != n:
+        fail_later(f"tiered: {tier['resident_reuploads']} re-uploads, "
+                   f"{snap['examples_loaded']} of {n} examples loaded")
+    if differ:
+        fail_later(f"tiered: the full-budget run differs from the untiered "
+                   f"plane in {differ}")
+
+    # kill-and-resume of a rotating run, bitwise the uninterrupted one
+    fresh_card(torch)
+    spec = tiered_spec(api, resume_n, resume_n * TIER_ROW_BYTES // TIER_RATIO,
+                       resume_policy)
+    resumed = kill_and_resume(torch, rt, spec, 1, CONVEX_COLUMNS,
+                              tiered=True)
+    emit(dict(resumed, path="tiered_resume", n=resume_n))
+    emit({"phase": "tiered", "seconds": time.perf_counter() - t_phase})
+    # the arrays the phase made stay in the session's memo otherwise
+    rt["api"].session._convex_arrays.cache_clear()
+    rt["api"].session._convex_problem.cache_clear()
+    fresh_card(torch)
+    return row
+
+
 SASS_OPS = ("HGMMA", "UTMALDG", "SYNCS", "HMMA", "LDSM", "MUFU.EX2")
 
 
@@ -3438,6 +3703,8 @@ def main() -> None:
     serving = serving_phase(torch, rt)
     serve_loop = serve_loop_phase(torch, rt)
     serve_ab_phase(torch, rt)
+    # the tiered corpus: a corpus four times its HBM budget
+    tiered = tiered_phase(torch, rt)
     # 4. card against CPU
     card_vs_cpu_phase(torch, rt)
     for arch in ("falcon-mamba-7b", "recurrentgemma-9b") + tuple(
@@ -3461,6 +3728,7 @@ def main() -> None:
         "launches_transformer_moe": tf_launches.get("linear_value_grad", 0),
         "launches_serve_loop": serve_loop["launches"].get(
             "linear_value_grad", 0),
+        "launches_tiered": tiered["launches"],
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],

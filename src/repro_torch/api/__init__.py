@@ -8,9 +8,10 @@ from .specs import (CheckpointSpec, DataSpec, ElasticSpec, ModelSpec,
                     ObsSpec, OptimizerSpec, PolicySpec, RunSpec,
                     ScheduleSpec, ServeSpec, SpecError, TieringSpec,
                     TopologySpec)
-from .registry import (OPTIMIZERS, POLICIES, STORES, TOPOLOGIES, WORKLOADS,
-                       build_optimizer, build_policy, make_store,
-                       optimizer_spec_of, register_workload)
+from .registry import (OPTIMIZERS, POLICIES, STORES, TIERS, TOPOLOGIES,
+                       WORKLOADS, build_optimizer, build_policy, make_store,
+                       optimizer_spec_of, register_tier_manager,
+                       register_workload)
 from .session import (Session, build, check_resume_spec, convex_problem,
                       resume_session, run)
 
@@ -19,7 +20,7 @@ __all__ = [
     "TopologySpec", "ElasticSpec", "CheckpointSpec", "ServeSpec",
     "ObsSpec", "ModelSpec", "TieringSpec", "SpecError", "Session", "build",
     "run", "resume_session", "check_resume_spec", "convex_problem",
-    "POLICIES", "OPTIMIZERS", "STORES", "TOPOLOGIES", "WORKLOADS",
+    "POLICIES", "OPTIMIZERS", "STORES", "TIERS", "TOPOLOGIES", "WORKLOADS",
     "build_policy", "build_optimizer", "make_store", "optimizer_spec_of",
-    "register_workload",
+    "register_tier_manager", "register_workload",
 ]

@@ -1,5 +1,5 @@
-"""Named registries — every ported policy, optimizer, shard store,
-topology and workload preset is addressable from a spec by name.
+"""Named registries — every ported policy, optimizer, shard store, tier
+manager, topology and workload preset is addressable from a spec by name.
 
 A name the reference registers but this port does not carry yet raises a
 :class:`SpecError` that says so and names the slice that brings it,
@@ -14,6 +14,7 @@ from typing import Any
 from ..core.engine import (ComposedPolicy, ExpansionPolicy, FixedSteps,
                            GradientVariance, NeverExpand, TwoTrack)
 from ..data.shards import InMemoryShardStore, MemmapShardStore, ThrottledStore
+from ..data.tiers import RingTierManager
 from ..dist.topology import ProcessTopology, SimulatedTopology
 from ..optim import REGISTRY as _OPTIM_REGISTRY
 from ..optim.api import BatchOptimizer
@@ -84,6 +85,13 @@ STORES = Registry("store", {
     "memmap": MemmapShardStore,
 })
 
+# ------------------------------------------------------------ tier managers
+# name -> tier manager class (data.tiers): decides which rows of the
+# expanding window are HBM-hot under a byte budget; named by
+# TieringSpec.manager
+TIERS = Registry("tier manager", {
+    RingTierManager.name: RingTierManager,
+})
 
 # --------------------------------------------------------------- topologies
 TOPOLOGIES = Registry("topology", {
@@ -96,6 +104,10 @@ TOPOLOGIES = Registry("topology", {
 # by repro_torch.workloads.presets on import; ``session.run`` and the CLI
 # pull from here.
 WORKLOADS = Registry("workload")
+
+
+def register_tier_manager(name: str, cls) -> Any:
+    return TIERS.register(name, cls)
 
 
 def register_workload(name: str, preset) -> Any:

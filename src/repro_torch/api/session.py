@@ -7,7 +7,9 @@ ported inner optimizer and policy), and the LM one for every model family
 of the reference (``workloads/families.py``).  Either serves its data
 through the host-slice path (``DataSpec(plane="host")``) or the streaming
 data plane (``plane="plane"``: shard stores, a prefetcher and a
-device-resident window, ``data/plane.py``), and either writes stage
+device-resident window, ``data/plane.py``; for a convex run with
+``TieringSpec(enabled=True)``, a tiered corpus whose hot window the HBM
+budget bounds, ``data/tiers/``), and either writes stage
 checkpoints (``CheckpointSpec``) that ``resume_session`` or
 ``Session.resume`` continue bit for bit.  ``TopologySpec(hosts=N)`` runs
 either over N hosts (``dist/``: one plane per host over its owned shards,
@@ -16,9 +18,9 @@ in this process; convex runs opt into the elastic runtime
 (``elastic/``: faults, straggler rebalancing) with an ``ElasticSpec``,
 and multi-host LM runs always run it, as in the reference.  ``build``
 validates the spec eagerly: unknown names and invalid combinations fail
-with a :class:`SpecError` as in the reference, and every branch a later
-slice brings (tiering, one ``torch.distributed`` process per host) fails
-with a :class:`SpecError` that names it.  ``ObsSpec`` wires one event
+with a :class:`SpecError` as in the reference, and the branch a later
+slice brings (one ``torch.distributed`` process per host) fails with a
+:class:`SpecError` that names it.  ``ObsSpec`` wires one event
 recorder through the stack (per-host lanes with ``fleet``, the live
 detectors with ``health``, per-stage costs and a ``torch.profiler``
 trace with ``profile``), as the reference's session does.  A serve spec is
@@ -48,6 +50,7 @@ from ..core.timemodel import SimulatedClock
 from ..core.trace import Trace
 from ..data.plane import StreamingDataset
 from ..data.synthetic import PAPER_LIKE, Dataset, classification_arrays
+from ..data.tiers import TieredCorpus
 from ..data.window import synth_corpus
 from ..device import resolve_device
 from ..dist.collectives import DistributedObjective
@@ -57,7 +60,7 @@ from ..elastic.checkpoint import StageCheckpointer, peek_stage_meta
 from ..models.common import ModelConfig
 from ..models.linear import LOSSES, init_params, make_objective
 from .lm import TokenWindows
-from .registry import (LM_OPTIMIZER, OPTIMIZERS, STORES, TOPOLOGIES,
+from .registry import (LM_OPTIMIZER, OPTIMIZERS, STORES, TIERS, TOPOLOGIES,
                        build_optimizer, build_policy, make_store)
 from .specs import DataSpec, ModelSpec, RunSpec, SpecError, TieringSpec
 
@@ -129,10 +132,7 @@ def _validate(spec: RunSpec) -> None:
     if hosts < 1:
         raise SpecError(f"TopologySpec.hosts must be >= 1, got {hosts}")
 
-    # branches later slices bring
-    if d.tiering.enabled:
-        raise _not_ported("tiering (TieringSpec.enabled)",
-                          "the tiered-corpus slice (ROADMAP queue A11)")
+    # the branch a later slice brings
     if spec.topology.kind == "process" and hosts > 1:
         # each process would fill only its own lane of a whole stacked
         # window, and nothing yet all-reduces the objective, the LM
@@ -154,7 +154,32 @@ def _validate(spec: RunSpec) -> None:
     if d.delay_ms < 0:
         raise SpecError(f"delay_ms must be >= 0, got {d.delay_ms}")
     t = d.tiering
-    if t.hbm_bytes or t.host_bytes or t.max_inflight is not None:
+    if t.enabled:
+        if d.plane != "plane":
+            raise SpecError(
+                "tiering needs the streaming plane (DataSpec.plane="
+                "'plane'): the host-slice path has no device window to "
+                "budget")
+        if d.kind != "convex":
+            raise SpecError("tiering currently serves the convex streaming "
+                            "path only; the LM token plane is untiered")
+        if t.hbm_bytes < 1:
+            raise SpecError(f"TieringSpec.enabled needs hbm_bytes >= 1 "
+                            f"(the hot-window byte budget), got "
+                            f"{t.hbm_bytes}")
+        if t.host_bytes < 0:
+            raise SpecError(f"TieringSpec.host_bytes must be >= 0 "
+                            f"(0 = unbounded ring), got {t.host_bytes}")
+        if t.max_inflight is not None and t.max_inflight < 1:
+            raise SpecError(f"TieringSpec.max_inflight must be >= 1 or "
+                            f"None, got {t.max_inflight}")
+        if hosts > 1:
+            raise SpecError(
+                "tiering is single-host for now: the rotation sweep is not "
+                "SPMD-wired (per-lane hot windows would need a "
+                "synchronized segment plan across hosts)")
+        TIERS.get(t.manager)
+    elif t.hbm_bytes or t.host_bytes or t.max_inflight is not None:
         raise SpecError(
             "TieringSpec budgets are set but enabled=False — enable "
             "tiering or drop the budgets (a silently untiered run would "
@@ -252,6 +277,12 @@ def _validate_policy(spec: RunSpec, policy) -> None:
             raise SpecError(
                 f"policy {policy.name!r} is not SPMD-wired yet: "
                 f"variance_stats unpacks (X, y), not HostWindows")
+    if spec.data.tiering.enabled and \
+            getattr(policy, "kind", None) == "two_track":
+        raise SpecError(
+            "policy 'two_track' trains a full-data track alongside the "
+            "window track — exactly the residency a tiered corpus cannot "
+            "provide; use a scan-stage policy with tiering")
 
 
 def lm_config(model: ModelSpec) -> ModelConfig:
@@ -358,8 +389,41 @@ def _stores(data: DataSpec, arrays: dict) -> list:
             for name, arr in arrays.items()]
 
 
+def _tiered_problem(data: DataSpec, device: torch.device):
+    """A tiered run's ``(problem, objective, w0, eval_data, stores)``: the
+    problem's tensors stay in host memory, and only the eval probe (the
+    first ``eval_rows`` rows, as in the reference) and the parameters go
+    to ``device`` — a tiered run must never make the whole corpus
+    resident there."""
+    arrays = _convex_arrays(data.replace(**_SERVING_FIELDS))
+    ds = Dataset(data.dataset, *(torch.from_numpy(a) for a in arrays),
+                 spec=data.to_dict())
+    eval_data = tuple(torch.from_numpy(a[: data.eval_rows]).to(device)
+                      for a in arrays[:2])
+    stores = _stores(data, {"X": arrays[0], "y": arrays[1]})
+    return (ds, make_objective(data.loss, lam=data.lam),
+            init_params(ds.d, device=device), eval_data, stores)
+
+
 def _build_convex(spec: RunSpec, policy, device: torch.device) -> "Session":
     data = spec.data
+    t = data.tiering
+    if t.enabled:
+        ds, objective, w0, eval_data, stores = _tiered_problem(data, device)
+        dataset = TieredCorpus(
+            stores, hbm_bytes=t.hbm_bytes, host_bytes=t.host_bytes,
+            growth=spec.schedule.growth,
+            prefetch_workers=data.prefetch_workers,
+            max_inflight=t.max_inflight, manager_cls=TIERS.get(t.manager),
+            device=device)
+        optimizer = build_optimizer(spec.optimizer)
+        return Session(spec, dataset=dataset, optimizer=optimizer,
+                       objective=objective, policy=policy,
+                       engine=_make_engine(spec, optimizer),
+                       clock=SimulatedClock(**spec.schedule.clock), w0=w0,
+                       eval_data=eval_data,
+                       checkpointer=_make_checkpointer(spec), problem=ds,
+                       device=device)
     ds, objective, w0 = convex_problem(data, device=device)
     if data.plane == "plane":
         # the stores hold the generator's numpy arrays, never a copy of the
@@ -770,6 +834,8 @@ class Session:
         meter = getattr(self.dataset, "meter", None)
         if meter is not None:
             trace.meta["data_plane"] = meter.snapshot()
+        if hasattr(self.dataset, "tier_meter"):
+            trace.meta["tiers"] = self.dataset.tier_report()
         if isinstance(self.dataset, DistributedDataset):
             trace.meta["data_plane_hosts"] = {
                 h: self.dataset.host_meters[h].snapshot()
@@ -787,6 +853,8 @@ class Session:
         meter = getattr(self.dataset, "meter", None)
         if meter is not None:
             out["data_plane"] = meter.snapshot()
+        if hasattr(self.dataset, "tier_meter"):
+            out["tiers"] = self.dataset.tier_meter.snapshot()
         if isinstance(self.dataset, DistributedDataset):
             out["hosts"] = {h: self.dataset.host_meters[h].snapshot()
                             for h in self.dataset.planes}

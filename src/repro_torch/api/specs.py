@@ -92,14 +92,14 @@ def _coerce(obj, field: str, spec_cls) -> None:
 # ------------------------------------------------------------------- tiering
 @dataclasses.dataclass(frozen=True)
 class TieringSpec(_Spec):
-    """The tiered corpus plane (``repro.data.tiers``): an HBM byte budget
-    for the hot window, a host-RAM byte budget for the shard ring
+    """The tiered corpus plane (``repro_torch.data.tiers``): an HBM byte
+    budget for the hot window, a host-RAM byte budget for the shard ring
     (``0`` = unbounded: every example leaves disk exactly once per run),
     and the prefetcher's in-flight shard bound.  ``enabled`` requires the
     streaming plane (``DataSpec.plane="plane"``), a convex workload and a
-    single host; ``manager`` names a :data:`repro.api.registry.TIERS`
-    entry.  The budgets are *simulated* limits — the subsystem is fully
-    exercisable on CPU."""
+    single host; ``manager`` names a :data:`repro_torch.api.registry.TIERS`
+    entry.  On the CPU the budgets are simulated limits; on the card the
+    hot window and the staged segment are the device memory they bound."""
     enabled: bool = False
     hbm_bytes: int = 0              # device budget for the hot window
     host_bytes: int = 0             # ring budget; 0 = unbounded

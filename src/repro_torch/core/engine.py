@@ -735,6 +735,19 @@ class BetEngine:
         return dataset.window(n_t)
 
     @staticmethod
+    def _segment_plan(dataset, info: StageInfo, k: int):
+        """Chunk plan against the data plane: a tiered corpus whose stage
+        window exceeds the HBM budget splits the chunk's ``k`` steps across
+        its hot-window sweep (``[(steps, examples_per_step), ...]`` — the
+        engine calls ``advance_window`` between entries); every other plane
+        runs the chunk in one piece at full window cost (``None`` ->
+        ``info.n_t``)."""
+        plan = getattr(dataset, "segment_steps", None)
+        if plan is None:
+            return [(k, None)]
+        return plan(info.n_t, k)
+
+    @staticmethod
     def _note_access(ctx, examples: int) -> None:
         """Report optimizer touches to the data plane's DataAccessMeter, in
         the same units the SimulatedClock charges — real-read accounting."""
@@ -791,13 +804,25 @@ class BetEngine:
                 return optimizer.step(w, state, objective, data)
             self.profiler.observe(info, scan_step, (carry[0], carry[1], win),
                                   {})
+        chunk_costs: list = []
         while True:
             k = int(policy.plan_steps(info, rec.steps))
-            with _obs_span(obs, "stage.compute", steps=k, window=info.n_t):
-                pulled = self._run_chunk(ctx, optimizer, objective, carry,
-                                         win, full_data, k,
-                                         eval_full=eval_full, probe_k=probe_k)
-            rec.add_chunk(pulled["f"], pulled.get("f_full"), pulled.get("w"))
+            for seg_j, (kj, seg_n) in enumerate(
+                    self._segment_plan(dataset, info, k)):
+                if seg_j:
+                    # rotation: land the next pre-staged sweep segment
+                    with _obs_span(obs, "stage.acquire", window=info.n_t,
+                                   segment=seg_n):
+                        win = dataset.advance_window()
+                pk = probe_k if seg_n is None else min(probe_k, seg_n)
+                with _obs_span(obs, "stage.compute", steps=kj,
+                               window=info.n_t):
+                    pulled = self._run_chunk(ctx, optimizer, objective,
+                                             carry, win, full_data, kj,
+                                             eval_full=eval_full, probe_k=pk)
+                rec.add_chunk(pulled["f"], pulled.get("f_full"),
+                              pulled.get("w"))
+                chunk_costs.append(seg_n)
             if probe_k:
                 rec.var, rec.g2 = float(pulled["var"]), float(pulled["g2"])
             expand = policy.should_expand(info, rec)
@@ -813,7 +838,8 @@ class BetEngine:
                 raise RuntimeError(
                     f"policy {policy.name} never expanded after {rec.steps} steps")
         with _obs_span(obs, "stage.flush", window=info.n_t):
-            self._flush_stage(ctx, policy, info, rec, eval_charge=probe_k)
+            self._flush_stage(ctx, policy, info, rec, eval_charge=probe_k,
+                              chunk_costs=chunk_costs)
         policy.stage_end(info, rec)
         self._stage_boundary(ctx, info, *carry)
         if obs is not None:
@@ -840,11 +866,14 @@ class BetEngine:
         the single-host engine records nothing extra."""
 
     def _flush_stage(self, ctx, policy, info: StageInfo, rec: StageRecords,
-                     *, eval_charge: int = 0):
+                     *, eval_charge: int = 0, chunk_costs=None):
         """Replay the §4.2 clock charges for the stage's inner steps and land
         the whole stage in the trace with one Trace.extend call.
         ``eval_charge`` > 0 bills one eval pass of that many points after
-        each chunk — the variance probe (charged like DSM's norm test)."""
+        each chunk — the variance probe (charged like DSM's norm test).
+        ``chunk_costs`` (parallel to ``rec.chunk_lengths()``) carries each
+        chunk's examples-per-step when it ran on a sweep segment instead of
+        the whole window; ``None`` entries charge the full ``n_t``."""
         self._collect_host_records(ctx, info)
         clock, cost, trace = ctx["clock"], ctx["cost"], ctx["trace"]
         fs, ffull = rec.f_window(), rec.f_full()
@@ -853,13 +882,17 @@ class BetEngine:
         accs = np.empty(n, dtype=np.int64)
         touched = 0
         i = 0
-        for clen in rec.chunk_lengths():
+        for ci, clen in enumerate(rec.chunk_lengths()):
+            chunk_n = info.n_t
+            if chunk_costs and ci < len(chunk_costs) \
+                    and chunk_costs[ci] is not None:
+                chunk_n = int(chunk_costs[ci])
             for j in range(clen):
-                clock.batch_update(cost(info.n_t))
-                touched += cost(info.n_t)
+                clock.batch_update(cost(chunk_n))
+                touched += cost(chunk_n)
                 if eval_charge and j == clen - 1:
-                    clock.eval_pass(eval_charge)
-                    touched += eval_charge
+                    clock.eval_pass(min(eval_charge, chunk_n))
+                    touched += min(eval_charge, chunk_n)
                 times[i], accs[i] = clock.time, clock.data_accesses
                 i += 1
         self._note_access(ctx, touched)

@@ -19,8 +19,8 @@ streaming plane, and ``HostWindows`` is the stage view over all lanes.
 
 The adapters ``rotation_rows``, ``probe_rows`` and ``rolling_subwindow``
 take a plain window, a ``MaskedWindow`` or a ``HostWindows``;
-``as_host_windows`` lifts any view to lanes.  ``append_staged`` comes with
-the tiered corpus (ROADMAP queue A11).
+``as_host_windows`` lifts any view to lanes.  ``DeviceWindow.append_staged``
+lands rows the tiered corpus already copied to the device.
 """
 from __future__ import annotations
 
@@ -351,6 +351,28 @@ class DeviceWindow:
         if self.meter is not None:
             self.meter.record_upload(nbytes=rows.nbytes,
                                      examples=k if self.meter_examples else 0)
+        self._n += k
+        self._n_dev = self._scalar(self._n)
+        return self._n
+
+    def append_staged(self, rows: torch.Tensor) -> int:
+        """Land rows that are *already on the window's device* (the tiered
+        corpus's double-buffered staging: their host-to-device copy ran on
+        the copy stream while the previous stage computed) in place after
+        the resident prefix: one device-to-device copy on the current
+        stream, and **no upload metering** — the commit meters the
+        transfer itself, on the driver thread, so discarded staged buffers
+        are never counted."""
+        if tuple(rows.shape[1:]) != self.item_shape:
+            raise ValueError(
+                f"rows shape {tuple(rows.shape[1:])} != item shape "
+                f"{self.item_shape}")
+        k = int(rows.shape[0])
+        if self._n + k > self.capacity:
+            raise ValueError(
+                f"append of {k} staged rows overflows window "
+                f"({self._n}/{self.capacity} resident)")
+        self._buf[self._n:self._n + k].copy_(rows)
         self._n += k
         self._n_dev = self._scalar(self._n)
         return self._n

@@ -25,9 +25,12 @@ which costs an S-shard expansion S²/2 checks).
 With a ``recorder`` attached (``obs.metrics.attach_prefetcher``) each
 schedule, load, land and cancel emits one event, as in the reference
 (``prefetch.loaded`` from the worker thread), with a ``prefetch.depth``
-counter of the in-flight loads.  The reference's ``max_inflight`` backlog
-serves only the tiered corpus and comes with it (ROADMAP queue A11); the
-depth counter's ``backlog`` is therefore always 0 here.
+counter of the submitted and the backlogged loads.  A shard's
+``prefetch.scheduled`` is emitted before its load can start (the reference
+submits first and emits after, so a fast load's ``prefetch.loaded`` may
+come first): ``schedule`` chooses the new ids under the lock, emits their
+events outside it (an observer may read the prefetcher), and only then
+lets them be submitted.
 The loads themselves are numpy, as in the reference: the plane's
 ``DeviceWindow`` puts the rows on the card.
 """
@@ -68,10 +71,20 @@ class Prefetcher:
     shuts the plane down): whichever side takes the lock second wins nothing
     — a post-close ``schedule`` is a silent no-op, and only a post-close
     ``take`` raises, because dropping a demand load is a correctness error
-    while dropping a prefetch hint is not."""
+    while dropping a prefetch hint is not.
+
+    ``max_inflight`` bounds how many scheduled loads may hold host RAM at
+    once (loaded-but-not-taken shards are the peak): excess hints queue in
+    an ordered backlog and are submitted as earlier loads are *taken*, so a
+    large next-stage schedule exerts backpressure instead of materializing
+    the whole expansion in memory.  Demand loads (``take`` of a backlogged
+    or unscheduled shard) always run immediately — the bound throttles
+    hints, never correctness.  ``None`` (default) submits every hint at
+    once."""
 
     def __init__(self, stores: Sequence[ShardStore],
-                 meter: DataAccessMeter | None = None, *, max_workers: int = 1):
+                 meter: DataAccessMeter | None = None, *, max_workers: int = 1,
+                 max_inflight: int | None = None):
         stores = tuple(stores)
         if not stores:
             raise ValueError("Prefetcher needs at least one store")
@@ -79,13 +92,23 @@ class Prefetcher:
         if len(sizes) != 1:
             raise ValueError(
                 f"field stores disagree on (num_examples, shard_size): {sizes}")
+        if max_inflight is not None and max_inflight < 1:
+            raise ValueError(
+                f"max_inflight must be >= 1 (or None for unbounded), "
+                f"got {max_inflight}")
         self.stores = stores
         self.meter = meter
+        self.max_inflight = max_inflight
         self._pool = ThreadPoolExecutor(max_workers=max_workers,
                                         thread_name_prefix="bet-prefetch")
         # shard -> (ticket, future) of each scheduled, not yet taken load
         self._pending: dict[int, tuple[int, Future]] = {}
         self._tickets = itertools.count()
+        # scheduled shards awaiting a slot, in schedule order; those in
+        # _unannounced have no prefetch.scheduled event out yet and are not
+        # submitted before it is
+        self._backlog: list[int] = []
+        self._unannounced: set[int] = set()
         # (shard, ticket) of scheduled loads that raised, in the order they
         # failed: appended by the worker (deque appends are atomic) before
         # the future completes, drained by the driving thread under the lock
@@ -103,33 +126,59 @@ class Prefetcher:
         if rec is not None:
             rec.instant(name, tags=self.recorder_tags or None, **fields)
 
-    def _obs_depth(self, inflight: int) -> None:
+    def _obs_depth(self, depth: tuple[int, int]) -> None:
         rec = self.recorder
         if rec is not None:
             rec.counter("prefetch.depth", tags=self.recorder_tags or None,
-                        inflight=inflight, backlog=0)
+                        inflight=depth[0], backlog=depth[1])
+
+    def _depth_locked(self) -> tuple[int, int]:
+        return len(self._pending), len(self._backlog)
+
+    def _pump_locked(self) -> list[int]:
+        """Submit backlogged hints, in order, while in-flight slots are free
+        and the head's ``prefetch.scheduled`` is out (caller holds the
+        lock).  Returns the ids submitted."""
+        started = []
+        while self._backlog and self._backlog[0] not in self._unannounced \
+                and (self.max_inflight is None
+                     or len(self._pending) < self.max_inflight):
+            i = self._backlog.pop(0)
+            t = next(self._tickets)
+            self._pending[i] = (t, self._pool.submit(self._timed_load, i, t))
+            started.append(i)
+        return started
 
     # ------------------------------------------------------------------ api
     def schedule(self, shard_ids) -> None:
         """Begin loading shards in the background (idempotent per shard).
-        No-op after ``close``; raises ``ShardLoadError`` eagerly if any
-        previously scheduled load has already failed."""
+        Beyond ``max_inflight``, hints queue in the backlog and start as
+        earlier loads are taken.  No-op after ``close``; raises
+        ``ShardLoadError`` eagerly if any previously scheduled load has
+        already failed."""
         with self._lock:
             if self._closed:
                 return
             self._sweep_failures_locked()
             new_ids = []
             for i in shard_ids:
-                if i not in self._pending:
-                    t = next(self._tickets)
-                    self._pending[i] = (
-                        t, self._pool.submit(self._timed_load, i, t))
+                if i not in self._pending and i not in self._backlog:
+                    self._backlog.append(i)
                     new_ids.append(i)
-            inflight = len(self._pending)
-        for i in new_ids:        # emit outside the lock
+            self._unannounced.update(new_ids)
+        if not new_ids:
+            return
+        for i in new_ids:        # emit outside the lock, before any submit
             self._obs("prefetch.scheduled", shard=int(i))
-        if new_ids:
-            self._obs_depth(inflight)
+        with self._lock:
+            # a cancel or a demand take in between dropped its ids from the
+            # backlog; a close in between cleared it and shut the pool
+            self._unannounced.difference_update(new_ids)
+            if self._closed:
+                return
+            self._pump_locked()
+            depth = self._depth_locked()
+        self._obs_depth(depth)
 
     def cancel(self, shard_ids) -> list[int]:
         """Drop scheduled loads whose shards no longer belong here (elastic
@@ -148,28 +197,35 @@ class Prefetcher:
                 if entry is not None:
                     entry[1].cancel()
                     dropped.append(i)
-            inflight = len(self._pending)
+                elif i in self._backlog:
+                    self._backlog.remove(i)
+                    self._unannounced.discard(i)
+                    dropped.append(i)
+            self._pump_locked()
+            depth = self._depth_locked()
         for i in dropped:
             self._obs("prefetch.cancelled", shard=int(i))
         if dropped:
-            self._obs_depth(inflight)
+            self._obs_depth(depth)
         return dropped
 
     def scheduled(self) -> list[int]:
-        """All shards currently scheduled (not yet taken)."""
+        """All shards currently scheduled (submitted or backlogged, not yet
+        taken)."""
         with self._lock:
-            return sorted(self._pending)
+            return sorted(set(self._pending) | set(self._backlog))
 
     def unfinished(self) -> list[int]:
         """Scheduled shards whose loads have not completed yet — the
         straggler detector's backlog measure at a stage flush."""
         with self._lock:
-            return sorted(i for i, (_, fut) in self._pending.items()
-                          if not fut.done())
+            return sorted({i for i, (_, fut) in self._pending.items()
+                           if not fut.done()} | set(self._backlog))
 
     def inflight(self) -> int:
-        """Scheduled-but-not-taken loads (loaded shards hold their arrays
-        in host RAM until taken)."""
+        """Submitted-but-not-taken loads — the host-RAM bound
+        ``max_inflight`` enforces (loaded shards hold their arrays until
+        taken)."""
         with self._lock:
             return len(self._pending)
 
@@ -181,14 +237,29 @@ class Prefetcher:
         (``blocked_s=0``): the tiered corpus consumes shards on a
         background staging thread whose blocking is by construction
         concurrent with driver compute, and charging it as demand-side
-        blocked time would misreport the §3.3 overlap."""
+        blocked time would misreport the §3.3 overlap.
+
+        Taking frees an in-flight slot, so the next backlogged hint starts
+        here — backpressure releases exactly as fast as the consumer
+        drains."""
         with self._lock:
             self._check_open()
             self._sweep_failures_locked()
             entry = self._pending.pop(shard, None)
             prefetched = entry is not None
-            fut = entry[1] if prefetched else self._pool.submit(
-                self._timed_load, shard, None)
+            if prefetched:
+                fut = entry[1]
+            else:
+                # a demand load bypasses the bound; drop a backlogged hint
+                # for the same shard so it cannot load twice
+                if shard in self._backlog:
+                    self._backlog.remove(shard)
+                    self._unannounced.discard(shard)
+                fut = self._pool.submit(self._timed_load, shard, None)
+            started = self._pump_locked()
+            depth = self._depth_locked()
+        if started:
+            self._obs_depth(depth)
         t0 = time.perf_counter()
         try:
             arrays, duration = fut.result()
@@ -219,6 +290,8 @@ class Prefetcher:
             self._closed = True
             pending = dict(self._pending)
             self._pending.clear()
+            self._backlog.clear()
+            self._unannounced.clear()
         # shut down outside the lock: workers may take a while to drain and
         # a racing schedule()/take() must not block on them
         for _, fut in pending.values():

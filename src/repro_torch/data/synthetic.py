@@ -45,6 +45,9 @@ class Dataset:
         return self.X[:n_t], self.y[:n_t]
 
 
+_CHUNK_ROWS = 1 << 16
+
+
 def classification_arrays(n: int, d: int, *, seed: int = 0,
                           test_n: int | None = None, noise: float = 0.1,
                           condition: float = 10.0, sparsity: float = 0.0
@@ -56,10 +59,18 @@ def classification_arrays(n: int, d: int, *, seed: int = 0,
     total = n + test_n
     # anisotropic covariance via diagonal eigen-spectrum
     scales = np.geomspace(1.0, 1.0 / condition, d).astype(np.float32)
-    X = rng.standard_normal((total, d)).astype(np.float32) * scales
+    # drawn in chunks of rows: the generator's stream is the same as one
+    # draw of the whole array (the reference's), without its float64 copy
+    X = np.empty((total, d), np.float32)
+    for lo in range(0, total, _CHUNK_ROWS):
+        hi = min(total, lo + _CHUNK_ROWS)
+        X[lo:hi] = rng.standard_normal((hi - lo, d)).astype(np.float32) \
+            * scales
     if sparsity > 0:
-        mask = rng.random((total, d)) >= sparsity
-        X = X * mask / max(1e-6, np.sqrt(1 - sparsity))  # keep scale
+        for lo in range(0, total, _CHUNK_ROWS):
+            hi = min(total, lo + _CHUNK_ROWS)
+            mask = rng.random((hi - lo, d)) >= sparsity
+            X[lo:hi] = X[lo:hi] * mask / max(1e-6, np.sqrt(1 - sparsity))
     w_star = rng.standard_normal(d).astype(np.float32) / np.sqrt(d)
     margins = X @ w_star + noise * rng.standard_normal(total).astype(np.float32)
     y = np.sign(margins).astype(np.float32)

@@ -992,3 +992,104 @@ def test_veto_rounds_replay_the_kept_graph(monkeypatch):
     assert torch.equal(graph.params, eager.params)
     assert graph.meta["host_transfers"] == len(want) + 1
     assert calls["linear_value_grad"] == eager_calls["linear_value_grad"]
+
+
+# ------------------------------------------------------------ tiered corpus
+def _tier_problem(n, d, seed):
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((n, d)).astype(np.float32)
+    y = np.sign(rng.standard_normal(n)).astype(np.float32)
+    return X, y
+
+
+def _tiered_card(X, y, *, hbm_rows, shard, **kw):
+    from repro_torch.data.shards import InMemoryShardStore
+    from repro_torch.data.tiers import TieredCorpus
+    row = X.shape[1] * 4 + 4
+    return TieredCorpus([InMemoryShardStore(X, shard),
+                         InMemoryShardStore(y, shard)],
+                        hbm_bytes=hbm_rows * row, device="cuda", **kw)
+
+
+def _rows_equal(view, X, y, lo, hi):
+    Xv, yv = view
+    return np.array_equal(Xv.cpu().numpy(), X[lo:hi]) and \
+        np.array_equal(yv.cpu().numpy(), y[lo:hi])
+
+
+def test_tiered_staged_commit_is_bitwise_a_direct_build(monkeypatch):
+    """The copy-stream staging lands the same bits as a synchronous direct
+    build, from a pinned ring, and its commit never synchronizes the
+    device."""
+    _need_card()
+    X, y = _tier_problem(1 << 16, 300, seed=3)
+    with _tiered_card(X, y, hbm_rows=1 << 16, shard=4096) as tc, \
+            _tiered_card(X, y, hbm_rows=1 << 16, shard=4096) as direct:
+        tc.begin_stage(1 << 14, 1 << 16)         # stages [16384, 65536)
+        assert tc._copy_stream is not None
+        assert all(t.is_pinned() for t in tc.ring._shards[0])
+
+        def no_sync(*a, **k):
+            raise AssertionError("the commit synchronized the device")
+
+        monkeypatch.setattr(torch.cuda, "synchronize", no_sync)
+        view = tc.begin_stage(1 << 16)
+        monkeypatch.undo()
+        assert tc.tier_meter.staged_commits == 1
+        ref = direct.window(1 << 16)
+        assert direct.tier_meter.direct_builds == 1
+        assert all(torch.equal(a, b) for a, b in zip(view, ref))
+        assert _rows_equal(view, X, y, 0, 1 << 16)
+        assert tc.meter.bytes_uploaded == direct.meter.bytes_uploaded
+
+
+def test_tiered_discard_while_a_copy_is_in_flight():
+    """A staged segment discarded while its copy may still run: the
+    discard waits for the stager, so a buffer the allocator hands out next
+    is never written by the dropped copy, and the next commit lands the
+    right rows."""
+    _need_card()
+    X, y = _tier_problem(1 << 18, 300, seed=4)
+    with _tiered_card(X, y, hbm_rows=1 << 16, shard=1 << 14) as tc:
+        tc.begin_stage(1 << 16, 1 << 17)
+        tc.begin_stage(1 << 17)                  # rotation: [65536, 131072)
+        assert tc.mode == "rotate" and tc._staged is not None
+        tc._discard_staged()                     # its copy may be in flight
+        fill = [torch.full(((1 << 16), 300), float("nan"), device="cuda")
+                for _ in range(4)]
+        assert tc.tier_meter.staged_discards == 1
+        tc.segment_steps(1 << 17, 2)
+        view = tc.advance_window()               # a plan miss: direct build
+        assert tc.tier_meter.direct_builds >= 1
+        torch.cuda.synchronize()
+        assert _rows_equal(view, X, y, 1 << 16, 1 << 17)
+        assert all(bool(torch.isnan(f).all()) for f in fill)
+
+
+def test_tiered_bounded_ring_spills_and_repromotes_on_the_card():
+    _need_card()
+    X, y = _tier_problem(1 << 14, 64, seed=5)
+    shard = 1 << 10
+    shard_bytes = shard * (64 * 4 + 4)
+    with _tiered_card(X, y, hbm_rows=1 << 12, shard=shard,
+                      host_bytes=6 * shard_bytes) as tc:
+        def sweep(n_t, k, check):
+            view = tc.begin_stage(n_t)
+            lo, hi = tc.hot_range
+            assert not check or _rows_equal(view, X, y, lo, hi)
+            for _ in tc.segment_steps(n_t, k)[1:]:
+                view = tc.advance_window()
+                lo, hi = tc.hot_range
+                assert not check or _rows_equal(view, X, y, lo, hi)
+
+        tc.begin_stage(1 << 12, 1 << 13)
+        sweep(1 << 13, 2, False)
+        sweep(1 << 14, 4, False)
+        assert tc.tier_meter.evictions > 0
+        loaded = tc.meter.examples_loaded
+        sweep(1 << 14, 4, True)                  # re-promotes spilled rows
+        assert tc.meter.examples_loaded > loaded
+        assert tc.tier_meter.resident_reuploads == 0
+        with tc.ring._lock:          # the stager may be inserting shards
+            shards = list(tc.ring._shards.values())
+        assert all(t.is_pinned() for f in shards for t in f)

@@ -62,6 +62,13 @@ OBS_MODULES = [
     "repro_torch.obs.profile", "repro_torch.workloads.sweep",
 ]
 
+# the tiered corpus
+TIER_MODULES = [
+    "repro_torch.data.tiers", "repro_torch.data.tiers.manager",
+    "repro_torch.data.tiers.host", "repro_torch.data.tiers.corpus",
+    "repro_torch.data.tiers.ckpt",
+]
+
 
 def test_every_module_imports_with_jax_and_repro_blocked():
     code = (
@@ -88,6 +95,7 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     assert set(TRANSFORMER_MODULES) <= set(names)
     assert set(SERVE_MODULES) <= set(names)
     assert set(OBS_MODULES) <= set(names)
+    assert set(TIER_MODULES) <= set(names)
     assert out.stdout.count("\n") == 1         # no module printed a thing
 
 

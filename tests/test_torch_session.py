@@ -58,17 +58,18 @@ LM = dict(data=R.DataSpec(kind="lm"),
     (dict(LM, model=R.ModelSpec(arch="granite-moe-1b-a400m", reduced=True)),
      None),
     # the plane, checkpoints, multiple hosts, the elastic runtime,
-    # serving and observability are ported: what stays refused is the
-    # tiered corpus; an observed spec (the fleet recorder of a multi-host
-    # run too) builds and runs in both packages with equal claims; a serve
-    # spec, also of an elastic multi-host run or an LM on the plane, is
-    # refused by build as the reference refuses it, pointing at build_loop
+    # serving, observability and the tiered corpus are ported: a tiered
+    # spec the reference refuses is refused with the reference's own
+    # error; an observed spec (the fleet recorder of a multi-host run too)
+    # builds and runs in both packages with equal claims; a serve spec,
+    # also of an elastic multi-host run or an LM on the plane, is refused
+    # by build as the reference refuses it, pointing at build_loop
     (dict(data=R.DataSpec(plane="plane", tiering=R.TieringSpec(
-        enabled=True, hbm_bytes=1))), "tiered-corpus slice"),
+        enabled=True, hbm_bytes=1))), "reference_error"),
     (dict(data=R.DataSpec(plane="plane"), topology=R.TopologySpec(hosts=2),
           obs=R.ObsSpec(enabled=True, fleet=True)), "observed"),
     (dict(data=R.DataSpec(tiering=R.TieringSpec(enabled=True, hbm_bytes=1))),
-     "tiered-corpus slice"),
+     "reference_error"),
     (dict(data=R.DataSpec(plane="plane"), topology=R.TopologySpec(hosts=4),
           elastic=R.ElasticSpec(enabled=True),
           serve=R.ServeSpec(enabled=True)), "build_loop"),
@@ -76,7 +77,7 @@ LM = dict(data=R.DataSpec(kind="lm"),
           topology=R.TopologySpec(hosts=2), data=R.DataSpec(
               plane="plane", tiering=R.TieringSpec(enabled=True,
                                                    hbm_bytes=1))),
-     "tiered-corpus slice"),
+     "reference_error"),
     (dict(obs=R.ObsSpec(enabled=True)), "observed"),
     (dict(serve=R.ServeSpec(enabled=True)), "build_loop"),
     (dict(LM, data=R.DataSpec(kind="lm", plane="plane"),
@@ -113,6 +114,18 @@ def test_unported_branches_raise_spec_error(change, needle):
         got.pop("overlap_ge_half"), want.pop("overlap_ge_half")
         assert got == want
         assert tr.meta["host_transfers"] == ref_tr.meta["host_transfers"]
+        return
+    if needle == "reference_error":
+        # the reference's error, type and message, in both packages (an
+        # HBM budget below one shard fails in the tier manager, the rest
+        # in the spec checks)
+        with pytest.raises(Exception) as ref:
+            R.build(R.RunSpec.from_json(spec.to_json()))
+        with pytest.raises(Exception) as got:
+            P.build(spec, device="cpu")
+        assert type(got.value).__name__ == type(ref.value).__name__ \
+            in ("SpecError", "ValueError")
+        assert str(got.value) == str(ref.value)
         return
     if needle == "build_loop":
         # the reference's own refusal, in both packages, naming the front

@@ -329,7 +329,10 @@ def test_dist_lm_phase_specs_validate():
 
 def _count_kernel_calls(monkeypatch):
     """The kernel wrappers count their calls where the card counts its
-    launches (on the CPU they serve the plain versions uncounted)."""
+    launches (on the CPU they serve the plain versions uncounted), into a
+    counter of the test's own: the module's stays empty for the tests
+    that check the CPU launches nothing."""
+    monkeypatch.setattr(tops, "CALLS", type(tops.CALLS)())
     for name in ("ssm_scan", "rglru_scan", "flash_attention"):
         def counted(*a, real=getattr(tops, name), name=name, **kw):
             tops.CALLS[name] += 1
@@ -484,3 +487,36 @@ def test_serve_loop_phases_run_small_on_the_cpu(monkeypatch, tmp_path):
     cmp = chip_smoke.serve_card_vs_cpu_phase(torch, rt, card="cpu")
     assert chip_smoke.FAILED == []
     assert cmp["loop_columns_equal"] and cmp["loop_tokens_equal"]
+
+
+def test_tiered_phase_specs_and_claims_on_the_cpu(monkeypatch):
+    """chip_smoke.py's tiered phase at 2^16 rows (4 shards of its 16,384
+    rows) on the CPU: its spec is w8a_like's width, tiered at a quarter
+    of the corpus, and a run computes the twelve BENCH_scale claims from
+    the meters and the event stream; those that do not compare wall
+    seconds hold, and the kernel wrapper is called once a step."""
+    from repro_torch.launch import methods
+    calls = []
+    real = tops.linear_value_grad
+    monkeypatch.setattr(tops, "linear_value_grad",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    n = 1 << 16
+    spec = chip_smoke.tiered_spec(P, n, n * chip_smoke.TIER_ROW_BYTES // 4,
+                                  {"inner_steps": 2, "final_steps": 4},
+                                  obs=True)
+    sess = P.build(spec, device="cpu")
+    ds = sess.dataset
+    assert (ds.n, ds.d, ds.hot_cap, ds.stores[0].num_shards) == \
+        (n, 300, n // 4, 4)
+    assert sum(s.example_nbytes for s in ds.stores) == \
+        chip_smoke.TIER_ROW_BYTES
+    tr = sess.run()
+    assert len(calls) == methods.kernel_calls(tr) == 8
+    claims = chip_smoke.scale_claims(sess, tr, n, bit_compatible=True)
+    timed = {"overlap_ge_half", "staging_overlap_ge_half",
+             "events_overlap_ge_half"}
+    assert len(claims) == 12
+    assert all(v for k, v in claims.items() if k not in timed), claims
+    assert sorted({p.window for p in tr.points}) == [n // 4, n // 2, n]
+    assert chip_smoke.tiered_spec(P, n, None, {}).data.tiering.enabled \
+        is False
