@@ -187,6 +187,23 @@ the run at its end:
     w), and a kill-and-resume of a rotating run at 2^18 rows, bitwise the
     uninterrupted one; the phase's seconds.
 
+The launch tooling (A12: DTensor layouts over a ``DeviceMesh``), right
+after 3h's group is gone, its checks failing the run at its end:
+ 3q. (a) the dry run (``launch/dryrun.py``) of qwen3-0.6b at full width
+    and depth on the 16×16 fake world: ``train_4k`` under ``fsdp_tp`` and
+    ``decode_32k`` under ``tp``, one line each (FLOPs, bytes and wire
+    bytes a device, the three roofline terms at the H100's peaks, the
+    bottleneck, ``trace_s``; the train step's top 5 collective sites).
+    (b) one train step of qwen3-0.6b at full width and all 28 layers on
+    the 3i batch (8 × 1,024) with DTensor parameters on a (1, 1) CUDA mesh
+    of a one-rank NCCL group under ``fsdp_tp+act``, against the port's
+    plain train step on the same parameters and batch: loss, gradient
+    norm and every updated leaf bitwise, or within 1e-6 relative with
+    each leaf's error printed; both steps' times (first and second call);
+    the dry run's per-device memory for the same step beside
+    ``max_memory_allocated``.  Every line carries the card's name and
+    power limit.
+
 Then the ``{"kernels": [...]}`` line (B1–B4 and the WHILE graph), and
 last ``{"ok": true, ...}``.
 """
@@ -2343,6 +2360,179 @@ def process_phase(torch, rt, device: str = "cuda") -> dict:
     return row
 
 
+# the launch tooling's phase (3q): the dry run's two combinations of
+# qwen3-0.6b on the 16×16 fake world, and one train step at 3i's batch on
+# a (1, 1) mesh held to the plain step within MESH_TOL relative (where it
+# is not bitwise)
+MESH_ARCH = "qwen3-0.6b"
+MESH_DRY_RUNS = (("train_4k", "fsdp_tp"), ("decode_32k", "tp"))
+MESH_POLICY = "fsdp_tp+act"
+MESH_TOL = 1e-6
+
+
+def _rel_err(a, b) -> float:
+    d = (a.double() - b.double()).abs().max().item()
+    return d / max(b.double().abs().max().item(), 1e-30)
+
+
+def mesh_dry_run_phase(torch, rt, reduced: bool = False) -> list:
+    """3q (a): the dry run's lines, with the train step's top 5 sites.
+    ``reduced`` (the CPU test) runs the reduced config on a 2×2 world."""
+    dryrun, forensics, mesh = rt["dryrun"], rt["forensics"], rt["mesh"]
+    rows = []
+    for shape, policy in MESH_DRY_RUNS:
+        if reduced:
+            cfg = rt["configs"].reduced(rt["configs"].get(MESH_ARCH))
+            with mesh.fake_world(4):
+                res = dryrun.dry_run(MESH_ARCH, shape, policy=policy,
+                                     cfg=cfg,
+                                     mesh=mesh.make_host_mesh(model=2))
+        else:
+            res = dryrun.dry_run(MESH_ARCH, shape, policy=policy)
+        row = {"path": "dry_run", "arch": MESH_ARCH, "shape": shape,
+               "policy": policy, "mesh": res["mesh"],
+               "chips": res["chips"],
+               "flops_per_device": res["flops_per_device"],
+               "bytes_per_device": res["bytes_per_device"],
+               "wire_bytes_per_device":
+                   res["collective_wire_bytes_per_device"],
+               "roofline_s": res["roofline"],
+               "bottleneck": res["bottleneck"], "trace_s": res["trace_s"],
+               "memory": res["memory"],
+               "useful_flops_ratio": res["useful_flops_ratio"],
+               "collectives": {k: v["count"]
+                               for k, v in res["collectives"].items()},
+               "replicated": [f"{n['op']} at {n['site']}"
+                              for n in res["notes"]],
+               "card": rt["smi"]}
+        if shape == "train_4k":
+            row["top_sites"] = forensics.report(
+                forensics.collective_sites(res), 5)[1:]
+        emit(row)
+        rows.append(row)
+        ok = all(math.isfinite(row[k]) and row[k] > 0 for k in
+                 ("flops_per_device", "bytes_per_device"))
+        if not ok or not res["collectives"]:
+            fail_later(f"dry run {shape} {policy}: {row}")
+    return rows
+
+
+def mesh_step_phase(torch, rt, device: str = "cuda",
+                    reduced: bool = False) -> dict:
+    """3q (b): one train step with DTensor parameters on a (1, 1) mesh of
+    a one-rank group (NCCL on the card, gloo on the CPU) against the plain
+    train step on the same parameters and batch; the dry run's memory for
+    the same step beside the allocator's peak."""
+    import socket
+    import torch.distributed as dist
+    configs, T = rt["configs"], rt["transformer"]
+    dryrun, mesh, SH = rt["dryrun"], rt["mesh"], rt["shardings"]
+    steps, shard_ctx, tree_map = rt["steps"], rt["shard_ctx"], rt["tree_map"]
+    cfg = configs.get(MESH_ARCH)
+    B, S = TF_BATCH, TF_SEQ
+    if reduced:
+        cfg = configs.reduced(cfg).with_(dtype=torch.float32)
+        B, S = 2, 64
+    t0 = time.perf_counter()
+    with mesh.fake_world(1):
+        pred = dryrun.dry_run(MESH_ARCH, "train_4k", policy=MESH_POLICY,
+                              cfg=cfg, mesh=mesh.make_host_mesh(model=1),
+                              batch_size=B, seq_len=S)
+    predict_s = time.perf_counter() - t0
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        m = mesh.make_host_mesh(model=1)
+        gen = torch.Generator(device=device).manual_seed(0)
+        rows = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
+                             device=device, dtype=torch.int32)
+        batch = {"tokens": rows[:, :-1].contiguous(),
+                 "labels": rows[:, 1:].contiguous()}
+        params = T.init_params(cfg, 0, device=device)
+        base = MESH_POLICY.split("+")[0]
+        dparams = SH.distribute_tree(
+            params, SH.param_specs_tree(cfg, params, m, base), m)
+        dbatch = SH.distribute_tree(
+            batch, SH.batch_partition(cfg, batch, m), m)
+        dopt = steps.init_opt_state(dparams)
+        args_bytes = dryrun._local_bytes((dparams, dopt, dbatch))
+        notes: list = []
+        step = steps.make_train_step(cfg, notes=notes,
+                                     gather_axes=mesh.dp_axes(m))
+        plain = steps.make_train_step(cfg)
+        shard_ctx.set_sharder(SH.make_activation_sharder(
+            m, set(MESH_POLICY.split("+")[1:])))
+        try:
+            sync(torch, device)
+            before = torch.cuda.memory_allocated() if device == "cuda" else 0
+            reset_peak(torch, device)
+            times = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                new_d, _, md = step(dparams, dopt, dbatch)
+                sync(torch, device)
+                times.append(time.perf_counter() - t0)
+                if not times[1:]:
+                    peak = torch.cuda.max_memory_allocated()                         if device == "cuda" else 0
+                    first = (tree_map(lambda x: x.to_local(), new_d), md)
+                del new_d
+        finally:
+            shard_ctx.set_sharder(None)
+        new_d, md = first
+        del dparams, dopt, dbatch
+        opt = steps.init_opt_state(params)
+        plain_times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            new_p, _, mp = plain(params, opt, batch)
+            sync(torch, device)
+            plain_times.append(time.perf_counter() - t0)
+    finally:
+        dist.destroy_process_group()
+    leaves = rt["tree_leaves"]
+    names = leaf_names(new_p)
+    errs, bitwise = {}, True
+    for name, a, b in zip(names, leaves(new_d), leaves(new_p)):
+        if not torch.equal(a, b):
+            bitwise = False
+            errs[name] = _rel_err(a, b)
+    scalars = {k: (float(md[k]), float(mp[k])) for k in ("loss",
+                                                         "grad_norm")}
+    for k, (a, b) in scalars.items():
+        if a != b:
+            bitwise = False
+            errs[k] = abs(a - b) / max(abs(b), 1e-30)
+    step_bytes = (peak - before + args_bytes) if device == "cuda" else None
+    predicted = pred["memory"]["argument_size_in_bytes"] + \
+        pred["memory"]["temp_size_in_bytes"]
+    row = {"path": "mesh_train_step", "arch": MESH_ARCH,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "batch": [B, S], "policy": MESH_POLICY, "mesh": "1x1",
+           "backend": "nccl" if device == "cuda" else "gloo",
+           "loss": scalars["loss"], "grad_norm": scalars["grad_norm"],
+           "bitwise": bitwise, "max_rel_err": errs,
+           "mesh_step_s": times, "plain_step_s": plain_times,
+           "replicated": [f"{n['op']} at {n['site']}" for n in notes],
+           "predicted_bytes": predicted,
+           "predicted_argument_bytes":
+               pred["memory"]["argument_size_in_bytes"],
+           "predicted_temp_bytes": pred["memory"]["temp_size_in_bytes"],
+           "argument_bytes": args_bytes,
+           "max_memory_allocated": peak,
+           "memory_before_step": before, "step_bytes": step_bytes,
+           "predict_s": predict_s, "card": rt["smi"]}
+    emit(row)
+    if not bitwise and max(errs.values()) > MESH_TOL:
+        fail_later(f"mesh train step against the plain step: {errs}")
+    if not all(math.isfinite(v) for pair in scalars.values() for v in pair):
+        fail_later(f"mesh train step not finite: {scalars}")
+    return row
+
+
 # the transformer and moe families' main paths (launch/train.py's spec):
 # qwen3-0.6b (dense, qk-norm) two-track and granite-moe-1b-a400m (32
 # experts, top-8) under fixed_steps, each at its full published width and
@@ -3630,6 +3820,8 @@ def main() -> None:
     from repro_torch import serve as serve_pkg
     from repro_torch.launch import methods
     from repro_torch.launch import serve
+    from repro_torch.launch import dryrun, forensics, mesh, shardings, steps
+    from repro_torch.models import shard_ctx
     from repro_torch.models import linear
     from repro_torch.models import transformer
     from repro_torch.optim import adam
@@ -3642,7 +3834,9 @@ def main() -> None:
               methods=methods, window_rows=window_rows, build_dir=build_dir,
               configs=configs, workloads=workloads,
               resolve_family=workloads.resolve_family, serve=serve,
-              serve_pkg=serve_pkg)
+              serve_pkg=serve_pkg, dryrun=dryrun, forensics=forensics,
+              mesh=mesh, shardings=shardings, steps=steps,
+              shard_ctx=shard_ctx)
 
     # 1. environment
     smi = subprocess.run(
@@ -3650,6 +3844,7 @@ def main() -> None:
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip()
     print(smi, flush=True)
+    rt["smi"] = smi
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     emit({"python": sys.version.split()[0], "torch": torch.__version__,
@@ -3689,6 +3884,12 @@ def main() -> None:
     dist_mamba = dist_lm_phase(torch, rt, "falcon-mamba-7b")
     dist_hybrid = dist_lm_phase(torch, rt, "recurrentgemma-9b")
     process_phase(torch, rt)
+    # the launch tooling: the dry run, and a train step under a mesh
+    t0 = time.perf_counter()
+    mesh_dry_run_phase(torch, rt)
+    mesh_step_phase(torch, rt)
+    emit({"path": "launch_tooling", "phase_s": time.perf_counter() - t0,
+          "card": smi})
     # the transformer and moe families, the zoo and the workload presets
     tf_launches = {}
     for arch, policy in TF_RUNS:

@@ -12,6 +12,7 @@ import torch
 from ..kernels import ops
 from .common import ModelConfig
 from .layers import apply_mrope, apply_rope, causal_mask_bias, rms_norm
+from .shard_ctx import shard
 
 
 def qkv_project(cfg: ModelConfig, p, x, positions):
@@ -92,13 +93,20 @@ def attention_block(cfg: ModelConfig, p, x, positions, *, impl: str = "xla",
     x: (B,S,d) -> (B,S,d); with ``return_kv`` also the (k, v) tensors that
     fill the cache."""
     q, k, v = qkv_project(cfg, p, x, positions)
+    # "+attnb": batch over the whole mesh for the attention einsums (GQA
+    # head counts rarely divide the model axis); back after the output
+    # projection
+    q = shard(q, "attn_batch")
+    k = shard(k, "attn_batch")
+    v = shard(v, "attn_batch")
     if impl == "pallas":
         out = ops.flash_attention(q, k, v, causal=True,
                                   window=window or cfg.sliding_window)
     else:
         out = causal_attention(cfg, q, k, v, window=window)
     B, S = x.shape[:2]
-    y = out.reshape(B, S, cfg.q_dim) @ p["wo"]
+    out = shard(out.reshape(B, S, cfg.q_dim), "act_btd_full")
+    y = out @ p["wo"]
     return (y, (k, v)) if return_kv else y
 
 

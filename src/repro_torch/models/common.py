@@ -87,3 +87,45 @@ class ModelConfig:
         if self.family == "moe":
             return ("moe",) * self.num_layers
         return ("attn_mlp",) * self.num_layers
+
+    def active_params(self) -> int:
+        """Parameters touched per token (MoE counts top-k experts only)."""
+        return self._param_count(active_only=True)
+
+    def total_params(self) -> int:
+        return self._param_count(active_only=False)
+
+    def _param_count(self, active_only: bool) -> int:
+        d = self.d_model
+        n = 0
+        if self.input_mode == "tokens":
+            n += self.vocab_size * d
+        if self.vocab_size:
+            n += d * self.vocab_size          # lm_head (untied)
+        for t in self.layer_types():
+            if t in ("attn_mlp", "moe"):
+                n += d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+                n += 2 * d                     # norms
+            if t == "attn_mlp":
+                n += 3 * d * self.d_ff
+            if t == "moe":
+                e = self.experts_per_token if active_only else self.num_experts
+                n += e * 3 * d * self.moe_d_ff + d * self.num_experts
+                if self.shared_expert and self.d_ff:
+                    n += 3 * d * self.d_ff
+            if t == "ssm":
+                di, st = self.d_inner, self.ssm_state
+                n += d * 2 * di + di * self.conv_width
+                n += di * (self.dt_rank + 2 * st) + self.dt_rank * di
+                n += di * st + di + di * d + d
+            if t == "rec":
+                # Griffin recurrent block (two input projs, conv, RG-LRU
+                # gates, out proj) + its MLP
+                w = self.lru_width
+                n += 2 * d * w + w * self.conv_width + 2 * w * w + 3 * w
+                n += w * d + 3 * d * self.d_ff + 2 * d
+            if t == "attn":                   # hybrid local-attention block
+                n += d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+                n += 3 * d * self.d_ff + 2 * d
+        n += d                                # final norm
+        return n

@@ -61,7 +61,8 @@ def apply_mrope(x, positions3, theta: float, sections):
     # the position stream of each frequency: section i's ids repeated
     sec_id = torch.repeat_interleave(
         torch.arange(len(sections), device=x.device),
-        torch.tensor(sections, device=x.device))               # (half,)
+        torch.tensor(sections, device=x.device),
+        output_size=half)                                      # (half,)
     pos = positions3[sec_id].movedim(0, -1).float()            # (B, S, half)
     ang = (pos * freqs)[..., None, :]                          # (B, S, 1, half)
     cos, sin = torch.cos(ang), torch.sin(ang)

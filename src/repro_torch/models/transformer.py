@@ -46,6 +46,7 @@ from .layers import dense_init, rms_norm, swiglu
 from .mamba import mamba_block, mamba_decode_step
 from .moe import moe_block
 from .rglru import recurrent_block
+from .shard_ctx import shard
 
 
 def vocab_padded(cfg: ModelConfig) -> int:
@@ -177,7 +178,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
     """The reference's parameter tree, drawn from a ``torch.Generator``
     seeded with ``seed`` on ``device`` (so not the reference's numbers:
     tests carry the reference's across with ``convert.params_from_jax``)."""
-    gen = torch.Generator(device=device).manual_seed(seed)
+    # on the meta device nothing is drawn (``param_specs``)
+    gen = None if torch.device(device).type == "meta" else \
+        torch.Generator(device=device).manual_seed(seed)
     d, Vp = cfg.d_model, vocab_padded(cfg)
     params: dict = {"final_norm": torch.zeros((d,), dtype=torch.float32,
                                               device=device)}
@@ -189,9 +192,17 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
     return params
 
 
+def param_specs(cfg: ModelConfig) -> dict:
+    """``init_params``' tree as meta tensors: the names, shapes and dtypes,
+    with nothing allocated and no generator drawn (the dry run's
+    parameters)."""
+    return init_params(cfg, device="meta")
+
+
 # =================================================================== forward
 def _layer_body(cfg: ModelConfig, t: str, p, x, positions, impl: str):
     """One layer of type ``t``: pre-norm residual block(s) -> (x, aux)."""
+    x = shard(x, "act_btd")
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if t == "ssm":
         return x + mamba_block(cfg, p, h, impl=impl), {}
@@ -299,12 +310,13 @@ def embed_inputs(cfg: ModelConfig, params, batch):
         positions = batch["positions"]
     else:
         positions = torch.arange(S, device=x.device).expand(B, S)
-    return x, positions
+    return shard(x, "act_btd"), positions
 
 
 def _chunk_loss(hc, lm_head, yc):
     """Σ (log Z - gold logit) over one chunk's tokens."""
-    logits = (hc @ lm_head).float()                              # (B,c,Vp)
+    hc = shard(hc, "act_btd")
+    logits = shard((hc @ lm_head).float(), "logits")             # (B,c,Vp)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, yc[..., None].long())[..., 0]
     return torch.sum(logz - gold)
@@ -379,6 +391,7 @@ def _layer_body_prefill(cfg: ModelConfig, t: str, p, x, positions, impl: str,
     the mamba block, whose ``return_state`` takes the plain scan; the
     Griffin block runs its plain recurrence whatever ``impl`` says."""
     S = x.shape[1]
+    x = shard(x, "act_btd")
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if t in ("attn_mlp", "attn", "moe"):
         window = cfg.local_window if t == "attn" else cfg.sliding_window

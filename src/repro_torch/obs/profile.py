@@ -42,6 +42,11 @@ from ..kernels import ops
 HBM_BW = 3.35e12                   # bytes/s
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12,
               torch.bfloat16: 989e12, torch.float16: 989e12}
+# NVLink 4 (the same data sheet): 900 GB/s counts both directions; the
+# dry run's wire bytes count what one GPU sends, so it divides by one
+# direction.  A floor for a mesh that crosses nodes, whose links are
+# slower (``launch/dryrun.py``)
+NVLINK_BW = 4.5e11                  # bytes/s, one direction (450 GB/s)
 
 
 def profiler_trace(logdir):
@@ -84,30 +89,111 @@ _VECTOR_PRODUCTS = {_aten.mv.default: lambda A, x: 2 * A.numel(),
                     _aten.vdot.default: lambda a, b: 2 * a.numel()}
 
 
+# the collectives DTensor issues, by the reference's HLO names
+_C10D_KINDS = {"all_gather_into_tensor": "all-gather",
+               "reduce_scatter_tensor": "reduce-scatter",
+               "all_reduce": "all-reduce",
+               "all_to_all_single": "all-to-all"}
+
+
+def _group_size(func, args) -> int:
+    name = func._schema.name.split("::")[-1]
+    if name in ("all_gather_into_tensor", "reduce_scatter_tensor"):
+        return int(args[-2])
+    if name == "all_to_all_single":
+        return len(args[1])
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    return _resolve_process_group(args[-1]).size()
+
+
 class _OpCounter(TorchDispatchMode):
     """Bytes of every operation's tensor inputs and outputs (a view moves
     none); the matrix-vector and dot products' FLOPs; and one operation per
     output element of each pointwise operation (``FlopCounterMode``
-    counts the matrix products)."""
+    counts the matrix products).
 
-    def __init__(self):
+    With ``local=True`` (the dry run, ``launch/hlo.py``) it counts what one
+    device runs: an operation on DTensors is left to DTensor, whose
+    operations on the local shards come back here and are counted, with
+    the matrix products' FLOPs (``FlopCounterMode``'s formulas) and each
+    collective DTensor issues (kind, output bytes, group size and
+    ``site()``, the caller's provenance); and it keeps the peak of the
+    bytes alive in the tensors made under it (``peak_bytes``).  With
+    ``device``, only operations with a tensor on that device count: the
+    dry run's tensors are on the meta device, and DTensor's own index
+    arithmetic on the host is not the step's work."""
+
+    def __init__(self, *, local: bool = False, site=None, device=None):
         super().__init__()
+        self.device = torch.device(device) if device is not None else None
         self.bytes = 0
         self.pointwise = 0
         self.vector_products = 0
+        self.local = local
+        self.products = 0
+        self.collectives: list = []
+        self.site = site or (lambda: "?")
+        self.live_bytes = 0
+        self.peak_bytes = 0
+        self.paused = 0
+
+    def _track(self, out) -> None:
+        import weakref
+        seen = set()
+        for t in tree_leaves(out):
+            if not isinstance(t, torch.Tensor) or id(t) in seen:
+                continue
+            seen.add(id(t))
+            n = t.numel() * t.element_size()
+            self.live_bytes += n
+            weakref.finalize(t, self._free, n)
+        self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+
+    def _free(self, n: int) -> None:
+        self.live_bytes -= n
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if self.paused:
+            return func(*args, **(kwargs or {}))
+        if self.local:
+            from torch.distributed.tensor import DTensor
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented
         out = func(*args, **(kwargs or {}))
+        if self.device is not None and not any(
+                t.device == self.device for t in tree_leaves((args, out))
+                if isinstance(t, torch.Tensor)):
+            return out                  # host-side bookkeeping of DTensor
         if func in _VECTOR_PRODUCTS:
             self.vector_products += _VECTOR_PRODUCTS[func](*args[:2])
-        if not getattr(func, "is_view", False):
+        is_view = getattr(func, "is_view", False)
+        if not is_view:
             self.bytes += sum(t.numel() * t.element_size()
                               for t in tree_leaves((args, kwargs, out))
                               if isinstance(t, torch.Tensor))
         if torch.Tag.pointwise in func.tags:
             self.pointwise += sum(t.numel() for t in tree_leaves(out)
                                   if isinstance(t, torch.Tensor))
+        if self.local:
+            self._count_local(func, args, kwargs or {}, out, is_view)
         return out
+
+    def _count_local(self, func, args, kwargs, out, is_view) -> None:
+        from torch.utils.flop_counter import flop_registry
+        packet = func.overloadpacket
+        if packet in flop_registry:
+            self.products += flop_registry[packet](*args, **kwargs,
+                                                   out_val=out)
+        name = func._schema.name
+        kind = _C10D_KINDS.get(name.split("::")[-1]) \
+            if name.startswith("_c10d_functional::") else None
+        if kind is not None:
+            self.collectives.append({
+                "kind": kind, "out_bytes": out.numel() * out.element_size(),
+                "group_size": _group_size(func, args), "site": self.site()})
+        if not is_view and not func._schema.is_mutable \
+                and not name.endswith("wait_tensor"):
+            self._track(out)
 
 
 def to_meta(x):

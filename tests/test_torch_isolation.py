@@ -69,6 +69,16 @@ TIER_MODULES = [
     "repro_torch.data.tiers.ckpt",
 ]
 
+# the launch tooling (mesh, shardings, specs, dry run, accounting,
+# forensics, the shard hook) and the last two examples
+LAUNCH_MODULES = [
+    "repro_torch.launch.mesh", "repro_torch.launch.shardings",
+    "repro_torch.launch.specs", "repro_torch.launch.hlo",
+    "repro_torch.launch.dryrun", "repro_torch.launch.forensics",
+    "repro_torch.models.shard_ctx", "repro_torch.examples.bet_lm_training",
+    "repro_torch.examples.serve_decode",
+]
+
 
 def test_every_module_imports_with_jax_and_repro_blocked():
     code = (
@@ -96,6 +106,7 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     assert set(SERVE_MODULES) <= set(names)
     assert set(OBS_MODULES) <= set(names)
     assert set(TIER_MODULES) <= set(names)
+    assert set(LAUNCH_MODULES) <= set(names)
     assert out.stdout.count("\n") == 1         # no module printed a thing
 
 

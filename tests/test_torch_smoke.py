@@ -520,3 +520,33 @@ def test_tiered_phase_specs_and_claims_on_the_cpu(monkeypatch):
     assert sorted({p.window for p in tr.points}) == [n // 4, n // 2, n]
     assert chip_smoke.tiered_spec(P, n, None, {}).data.tiering.enabled \
         is False
+
+
+def _mesh_rt():
+    from repro_torch import configs
+    from repro_torch.launch import dryrun, forensics, mesh, shardings, steps
+    from repro_torch.models import shard_ctx
+    return dict(configs=configs, transformer=TT, dryrun=dryrun,
+                forensics=forensics, mesh=mesh, shardings=shardings,
+                steps=steps, shard_ctx=shard_ctx, tree_map=tree_map,
+                tree_leaves=tree_leaves, smi="cpu")
+
+
+def test_mesh_phases_run_small_on_the_cpu(monkeypatch, capsys):
+    """chip_smoke.py 3q on the CPU: the dry run's two lines on a 2×2 fake
+    world at the reduced config, then the (1, 1)-mesh train step over a
+    one-rank gloo group, bitwise the plain step."""
+    import json
+    monkeypatch.setattr(chip_smoke, "FAILED", [])
+    rt = _mesh_rt()
+    rows = chip_smoke.mesh_dry_run_phase(torch, rt, reduced=True)
+    assert [r["shape"] for r in rows] == ["train_4k", "decode_32k"]
+    assert len(rows[0]["top_sites"]) == 5
+    row = chip_smoke.mesh_step_phase(torch, rt, device="cpu", reduced=True)
+    assert chip_smoke.FAILED == []
+    assert row["bitwise"], row["max_rel_err"]
+    assert row["predicted_bytes"] > row["argument_bytes"] > 0
+    assert not torch.distributed.is_initialized()
+    lines = [json.loads(l) for l in capsys.readouterr().out.splitlines()
+             if l.startswith("{")]
+    assert all(l["card"] == "cpu" for l in lines)
