@@ -204,6 +204,25 @@ after 3h's group is gone, its checks failing the run at its end:
     ``max_memory_allocated``.  Every line carries the card's name and
     power limit.
 
+The pre-engine host loops (``core/legacy.py``) against the engine, right
+after 3n, its checks failing the run at its end:
+ 3r. (a) quickstart@6 (3a's problem, Newton-CG at R 0.2, n0 128):
+    ``legacy.run_bet_fixed`` (inner 4, final 8), ``run_two_track`` (final
+    8) and ``run_batch`` (10 steps), each against the port's deprecated
+    wrapper of the same name, that is the engine: the columns and the
+    (stage, window) sequence equal, f̂, f̂ on the full set and the fast
+    track's f̂ within 1e-5 (the reference test's bound); B1's launches in
+    each run the count its trace implies; the loop's host pulls what its
+    trace implies (two a step, three a racing step and one a final step,
+    one a recorded step).  (b) BENCH_engine.json's comparison at its own
+    setting (bench_engine.py's definitions, kept here): bet_fixed,
+    two_track and batch, each legacy loop against ``run_method`` after
+    one warm-up run each: one line a method (both walls, both host-sync
+    counts, syncs per inner step and per stage, the speedup, parity), then
+    the four claims, of which all but ``engine_faster`` (a comparison of
+    wall seconds) must hold.  Every line carries the card's name and power
+    limit; the last the phase's seconds.
+
 Then the ``{"kernels": [...]}`` line (B1–B4 and the WHILE graph), and
 last ``{"ok": true, ...}``.
 """
@@ -2889,6 +2908,199 @@ def while_graph_phase(torch, rt) -> dict:
     return wrow
 
 
+# 3r: the pre-engine host loops (core/legacy.py) against the engine.
+# (a) quickstart@6 (3a's problem and optimizer) under each loop's
+# parity-test settings (tests/test_engine.py:32-86, with its rtol 1e-5);
+# (b) BENCH_engine.json's setting, with benchmarks/bench_engine.py's
+# definitions kept here: fig3 webspam_like at scale 0.25 (ENGINE_DATA,
+# ENGINE_SCALE), n0 = max(128, min(d, n // 8)), default_newton, each side
+# timed after one warm-up run
+LEGACY_RTOL = 1e-5
+LEGACY_PARITY = {"run_bet_fixed": dict(inner_steps=4, final_steps=8),
+                 "run_two_track": dict(final_steps=8),
+                 "run_batch": dict(steps=10)}
+# bench_engine.py's DRIVERS: engine side (a run_method name), legacy side;
+# and its keywords (``_kwargs``), the same on both sides (run_method takes
+# the legacy loop's schedule as ``n0``)
+ENGINE_DRIVERS = {"bet_fixed": ("bet_fixed", "run_bet_fixed"),
+                  "two_track": ("bet", "run_two_track"),
+                  "batch": ("batch", "run_batch")}
+ENGINE_KWARGS = {"bet_fixed": dict(inner_steps=5, final_steps=25),
+                 "two_track": dict(final_steps=25),
+                 "batch": dict(steps=30)}
+
+
+def legacy_pulls_implied(tr) -> int:
+    """The pulls a legacy trace implies: two a fixed-steps step, three a
+    racing step and one a final step, one a recorded Batch step."""
+    racing = sum("f_fast_on_t" in p.extra for p in tr.points)
+    if tr.method == "bet":
+        return 2 * len(tr.points)
+    return 3 * racing + (len(tr.points) - racing)
+
+
+def legacy_against_engine(tr_l, tr_e) -> dict:
+    """Columns that differ, the (stage, window) sequences, and the largest
+    relative gap of f̂_t, f̂ and f̂_t of the fast track."""
+    fast = [[p.extra.get("f_fast_on_t") for p in tr.points]
+            for tr in (tr_l, tr_e)]
+    racing = [[f for f in col if f is not None] for col in fast]
+    return {"columns_differ": [c for c in ("step", "stage", "window",
+                                           "time", "accesses")
+                               if tr_l.column(c) != tr_e.column(c)],
+            "expansions_equal": [(p.stage, p.window) for p in tr_l.points]
+            == [(p.stage, p.window) for p in tr_e.points],
+            "fast_rows_equal": [f is None for f in fast[0]]
+            == [f is None for f in fast[1]],
+            "max_rel_f": max(traj_dev(tr_l, tr_e),
+                             rel_dev(*racing) if racing[0] else 0.0)}
+
+
+def legacy_phase(torch, rt, scale: float = 6.0,
+                 engine_scale: float = ENGINE_SCALE,
+                 device: str = "cuda") -> dict:
+    """3r: each legacy host loop against the engine (the port's
+    deprecated wrapper of the same name) on quickstart@6: the columns and
+    the (stage, window) sequence equal, f̂ within LEGACY_RTOL, B1's
+    launches in each run what ``methods.kernel_calls`` reads from its
+    trace, the loop's host pulls what its trace implies.  Then
+    BENCH_engine.json's comparison at its own setting: one line a method
+    (both walls, both host-sync counts, the rates, the speedup, parity)
+    and the four claims; all but ``engine_faster``, a comparison of wall
+    seconds, fail the run at its end.  ``scale``, ``engine_scale`` and
+    ``device`` run it small on the CPU."""
+    import warnings
+
+    from repro_torch.core import BETSchedule, SimulatedClock, bet, legacy
+    from repro_torch.optim import NewtonCG
+    api, ops, methods = rt["api"], rt["ops"], rt["methods"]
+    card = rt.get("smi", device)
+    t_phase = time.perf_counter()
+
+    def run(fn, *args, **kw):
+        """One run, with its B1 launches, host pulls and wall seconds."""
+        sync(torch, device)
+        ops.reset_calls()
+        legacy.reset_host_pulls()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            tr = fn(*args, **kw)
+        sync(torch, device)
+        return tr, {"wall_s": time.perf_counter() - t0,
+                    "launches": ops.CALLS.get("linear_value_grad", 0),
+                    "implied": methods.kernel_calls(tr),
+                    "pulls": legacy.host_pulls()}
+
+    # (a) the parity tests' settings at the main path's shape
+    data, _ = quickstart_specs(api, scale)
+    ds, obj, w0 = api.convex_problem(data, device=device)
+    opt = NewtonCG(hessian_fraction=0.2)
+    sched = BETSchedule(n0=128)
+    for name, kw in LEGACY_PARITY.items():
+        if name != "run_batch":
+            kw = dict(kw, schedule=sched)
+        tr_l, m_l = run(getattr(legacy, name), ds, opt, obj,
+                        clock=SimulatedClock(), w0=w0, **kw)
+        tr_e, m_e = run(getattr(bet, name), ds, opt, obj,
+                        clock=SimulatedClock(), w0=w0, **kw)
+        cmp = legacy_against_engine(tr_l, tr_e)
+        row = {"path": "legacy_parity", "loop": name, "n": ds.n, "d": ds.d,
+               "steps": len(tr_l.points), "stages": tr_e.meta["stages"],
+               **cmp, "legacy": m_l,
+               "pulls_implied": legacy_pulls_implied(tr_l),
+               "engine": {"wall_s": m_e["wall_s"],
+                          "launches": m_e["launches"],
+                          "implied": m_e["implied"],
+                          "host_transfers": tr_e.meta["host_transfers"]},
+               "f_full": [tr_l.final().f_full, tr_e.final().f_full],
+               "finite": finite(tr_l) and finite(tr_e), "card": card}
+        emit(row)
+        if cmp["columns_differ"] or not cmp["expansions_equal"] or \
+                not cmp["fast_rows_equal"] or \
+                not cmp["max_rel_f"] <= LEGACY_RTOL or not row["finite"] \
+                or m_l["launches"] != m_l["implied"] \
+                or m_e["launches"] != m_e["implied"] \
+                or m_l["pulls"] != row["pulls_implied"]:
+            fail_later(f"legacy {name} against the engine: {row}")
+
+    # (b) bench_engine.py at its setting
+    ds, eobj, ew0, _ = methods.setup(ENGINE_DATA, engine_scale,
+                                     device=device)
+    sched = BETSchedule(n0=max(128, min(ds.d, ds.n // 8)))
+    report = {}
+    for method, (spec_method, loop) in ENGINE_DRIVERS.items():
+        legacy_fn = getattr(legacy, loop)
+
+        def legacy_run():
+            kw = dict(ENGINE_KWARGS[method])
+            if method != "batch":
+                kw["schedule"] = sched
+            return run(legacy_fn, ds, methods.default_newton(ds), eobj,
+                       clock=SimulatedClock(), w0=ew0, **kw)
+
+        def engine_run():
+            return run(methods.run_method, spec_method, ds, eobj, ew0,
+                       n0=sched.n0, **ENGINE_KWARGS[method])
+
+        legacy_run()                                 # warm-up
+        tr_l, m_l = legacy_run()
+        engine_run()
+        tr_e, m_e = engine_run()
+        pulls = m_l["pulls"]
+        stages = tr_e.meta["stages"]
+        transfers = tr_e.meta["host_transfers"]
+        # syncs per inner-stage step: the two-track final phase pulls once
+        # a step, so it is counted apart from the racing steps
+        n_inner = sum("f_fast_on_t" in p.extra for p in tr_l.points) \
+            if method == "two_track" else len(tr_l.points)
+        n_tail = len(tr_l.points) - n_inner
+        f_l, f_e = tr_l.final().f_full, tr_e.final().f_full
+        v = {"legacy": {"wall_s": m_l["wall_s"], "host_syncs": pulls,
+                        "steps": len(tr_l.points),
+                        "syncs_per_step": pulls / len(tr_l.points),
+                        "syncs_per_inner_step":
+                            (pulls - n_tail) / max(1, n_inner),
+                        "launches": m_l["launches"],
+                        "launches_implied": m_l["implied"],
+                        "final_f": f_l},
+             "engine": {"wall_s": m_e["wall_s"], "host_syncs": transfers,
+                        "steps": len(tr_e.points), "stages": stages,
+                        "syncs_per_stage": transfers / stages,
+                        "launches": m_e["launches"],
+                        "launches_implied": m_e["implied"],
+                        "final_f": f_e},
+             "speedup": m_l["wall_s"] / m_e["wall_s"],
+             "sync_reduction": pulls / max(1, transfers),
+             "parity": abs(f_e - f_l) <= 1e-3 * max(1.0, abs(f_l))}
+        report[method] = v
+        emit({"path": "legacy_bench_engine", "method": method,
+              "workload": f"fig3/{ENGINE_DATA}", "scale": engine_scale,
+              "n": ds.n, "d": ds.d, "n0": sched.n0, **v, "card": card})
+        if m_l["launches"] != m_l["implied"] or \
+                m_e["launches"] != m_e["implied"]:
+            fail_later(f"bench_engine {method}: B1 launches differ from "
+                       f"the traces' counts: {v}")
+    claims = {
+        "engine_max_one_transfer_per_stage": all(
+            v["engine"]["syncs_per_stage"] <= 1.0 for v in report.values()),
+        "legacy_at_least_two_syncs_per_step": all(
+            v["legacy"]["syncs_per_inner_step"] >= 2.0
+            for k, v in report.items() if k != "batch"),
+        "engine_faster": all(v["speedup"] > 1.0 for v in report.values()),
+        "parity": all(v["parity"] for v in report.values()),
+    }
+    seconds = time.perf_counter() - t_phase
+    emit({"path": "legacy_bench_engine", "claims": claims,
+          "speedup": {k: v["speedup"] for k, v in report.items()},
+          "phase_s": seconds, "card": card})
+    for claim in ("engine_max_one_transfer_per_stage",
+                  "legacy_at_least_two_syncs_per_step", "parity"):
+        if not claims[claim]:
+            fail_later(f"bench_engine setting: {claim} is false: {report}")
+    return {"methods": report, "claims": claims, "seconds": seconds}
+
+
 def profiler_trace_summary(path: Path) -> dict:
     """The Chrome trace ``torch.profiler`` wrote around a run: its size,
     its events and how many of them are the card's kernels."""
@@ -3870,6 +4082,7 @@ def main() -> None:
     # 3. the main paths, each with its own launch counts
     launches = main_path_phase(torch, rt)
     while_row = while_graph_phase(torch, rt)
+    legacy_phase(torch, rt)
     obs_phase(torch, rt)
     plane_launches = convex_plane_phase(torch, rt)
     method_launches = convex_methods_phase(torch, rt)

@@ -6,7 +6,8 @@ from .engine import (BETSchedule, BetEngine, ComposedPolicy, ExpansionPolicy,
                      FixedSteps, GradientVariance, NeverExpand, ResumeState,
                      StageEnd, StageInfo, StageRecords, TwoTrack,
                      variance_stats)
+from .bet import run_batch, run_bet_fixed, run_gradient_variance, run_two_track
 from .dsm import run_dsm, run_minibatch
 from .timemodel import SimulatedClock
 from .trace import Point, Trace
-from . import theory
+from . import legacy, theory

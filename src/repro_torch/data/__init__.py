@@ -1,4 +1,5 @@
 from .synthetic import Dataset, load, make_classification, PAPER_LIKE
+from .window import ExpandingWindow, synth_corpus
 from .shards import (DataAccessMeter, InMemoryShardStore, MemmapShardStore,
                      ShardLoadError, ShardStore, ThrottledStore,
                      store_capacity)

@@ -15,6 +15,7 @@ import collections
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import repro_torch.api as P
 from repro_torch.core import engine
@@ -607,6 +608,71 @@ def test_baselines_on_card_match_cpu(method):
         assert gpu.column(col) == cpu.column(col), col
     np.testing.assert_allclose(gpu.column("f_full"), cpu.column("f_full"),
                                rtol=1e-4)
+
+
+# ------------------------------------------------------ the legacy loops
+class _ScalarReads(TorchDispatchMode):
+    """Counts the reads of one scalar back to the host."""
+
+    def __init__(self):
+        super().__init__()
+        self.reads = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.reads += func.__name__.split(".")[0] == "_local_scalar_dense"
+        return func(*args, **(kwargs or {}))
+
+
+def test_pull_reads_one_scalar_from_the_card_a_call():
+    _need_card()
+    from repro_torch.core import legacy
+    x = torch.arange(3, dtype=torch.float32, device="cuda")
+    legacy.reset_host_pulls()
+    with _ScalarReads() as mode:
+        got = [legacy._pull(x[i] * 2) for i in range(3)]
+    assert got == [0.0, 2.0, 4.0]
+    assert legacy.host_pulls() == mode.reads == 3
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("run_bet_fixed", dict(inner_steps=4, final_steps=8)),
+    ("run_two_track", dict(final_steps=8)),
+    ("run_batch", dict(steps=10, record_every=3)),
+])
+def test_legacy_loop_on_card_matches_the_engine(name, kw):
+    """A legacy loop runs on the card where its dataset lies, reads back
+    only at its pulls, launches B1 once an optimizer step, and matches the
+    engine (its deprecated wrapper) as the reference's parity tests ask."""
+    _need_card()
+    import warnings
+
+    from repro_torch.core import BETSchedule, SimulatedClock, bet, legacy
+    from repro_torch.launch import methods
+    from repro_torch.optim import NewtonCG
+    ds, obj, w0 = P.convex_problem(
+        P.DataSpec(dataset="w8a_like", scale=0.125, lam=1e-3),
+        device="cuda")
+    if name != "run_batch":
+        kw = dict(kw, schedule=BETSchedule(n0=128))
+    legacy.reset_host_pulls()
+    ops.reset_calls()
+    with _ScalarReads() as mode:
+        tr_l = getattr(legacy, name)(ds, NewtonCG(), obj,
+                                     clock=SimulatedClock(), **kw)
+    assert legacy.host_pulls() == mode.reads > 0
+    assert tr_l.params.device.type == "cuda"
+    steps = tr_l.final().step + 1
+    assert ops.CALLS["linear_value_grad"] == methods.kernel_calls(tr_l) >= \
+        steps
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        tr_e = getattr(bet, name)(ds, NewtonCG(), obj,
+                                  clock=SimulatedClock(), w0=w0, **kw)
+    for col in ("step", "stage", "window", "time", "accesses"):
+        assert tr_l.column(col) == tr_e.column(col), col
+    for col in ("f_window", "f_full"):
+        np.testing.assert_allclose(tr_l.column(col), tr_e.column(col),
+                                   rtol=1e-5)
 
 
 # ------------------------------------------------------ streaming data plane

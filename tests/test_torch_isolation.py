@@ -79,6 +79,13 @@ LAUNCH_MODULES = [
     "repro_torch.examples.serve_decode",
 ]
 
+# the host-side legacy loops, the paper-named wrappers and the
+# ExpandingWindow shim
+LEGACY_MODULES = [
+    "repro_torch.core.legacy", "repro_torch.core.bet",
+    "repro_torch.data.window",
+]
+
 
 def test_every_module_imports_with_jax_and_repro_blocked():
     code = (
@@ -107,6 +114,7 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     assert set(OBS_MODULES) <= set(names)
     assert set(TIER_MODULES) <= set(names)
     assert set(LAUNCH_MODULES) <= set(names)
+    assert set(LEGACY_MODULES) <= set(names)
     assert out.stdout.count("\n") == 1         # no module printed a thing
 
 

@@ -550,3 +550,35 @@ def test_mesh_phases_run_small_on_the_cpu(monkeypatch, capsys):
     lines = [json.loads(l) for l in capsys.readouterr().out.splitlines()
              if l.startswith("{")]
     assert all(l["card"] == "cpu" for l in lines)
+
+
+def test_legacy_phase_runs_small_on_the_cpu(monkeypatch, tmp_path, capsys):
+    """chip_smoke.py 3r on the CPU: each legacy host loop against the
+    engine at quickstart@0.25 (columns, expansions, f̂, the wrapper's
+    calls and the loop's pulls what the traces imply), then
+    BENCH_engine.json's comparison at scale 0.06, whose claims hold but
+    ``engine_faster`` (a comparison of wall seconds)."""
+    import json
+    rt = _cpu_rt(monkeypatch, tmp_path)
+    out = chip_smoke.legacy_phase(torch, rt, scale=0.25, engine_scale=0.06,
+                                  device="cpu")
+    assert chip_smoke.FAILED == []
+    assert {k: v for k, v in out["claims"].items()
+            if k != "engine_faster"} == {
+        "engine_max_one_transfer_per_stage": True,
+        "legacy_at_least_two_syncs_per_step": True, "parity": True}
+    m = out["methods"]
+    assert m["bet_fixed"]["legacy"]["syncs_per_inner_step"] == 2.0
+    assert m["two_track"]["legacy"]["syncs_per_inner_step"] == 3.0
+    assert all(v["engine"]["launches"] == v["engine"]["launches_implied"] > 0
+               for v in m.values())
+    rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+            if line.startswith("{")]
+    parity = [r for r in rows if r.get("path") == "legacy_parity"]
+    assert [r["loop"] for r in parity] == list(chip_smoke.LEGACY_PARITY)
+    for r in parity:
+        assert r["columns_differ"] == [] and r["expansions_equal"]
+        assert r["max_rel_f"] <= chip_smoke.LEGACY_RTOL
+        assert r["legacy"]["pulls"] == r["pulls_implied"] > 0
+        assert r["legacy"]["launches"] == r["legacy"]["implied"] > 0
+    assert all(r["card"] == "cpu" for r in rows)
