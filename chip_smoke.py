@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main paths on one card and check them.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases convex,registry,mesh]
 
 Run from the root of a checkout on a machine with a CUDA card (an H100:
 the kernels are built for sm_90a).  Phases, in order; any failure ends
-the script with a non-zero exit and no result line:
+the script with a non-zero exit and no result line.  ``--phases`` runs
+the named ones of ``PHASES`` (and what each needs) after the build, and
+prints no kernels line; with no argument every phase runs:
 
  1. environment — the card's name and power limit (nvidia-smi), the torch
     and CUDA versions; TF32 off; every kernel built from the sources in
@@ -28,7 +30,10 @@ the script with a non-zero exit and no result line:
        two-track then batch; linear_value_grad launches exactly once per
        optimizer step the traces imply (the race's WHILE graph counts its
        replays); one pull a stage; the WHILE graph launched once a racing
-       stage;
+       stage; then (registry) a FixedSteps and a NewtonCG registered under
+       new names (``register_policy``, ``register_optimizer``) and
+       quickstart@6 built through a RunSpec naming them, bitwise the run
+       under the built-in names, B1's launches the trace's count;
     a'. the convex method set on the same problem, each run a path of its
        own: two-track with nonlinear CG, L-BFGS and AdamW; the
        gradient-variance policy, alone and as a veto of two-track
@@ -193,7 +198,10 @@ after 3h's group is gone, its checks failing the run at its end:
     and depth on the 16×16 fake world: ``train_4k`` under ``fsdp_tp`` and
     ``decode_32k`` under ``tp``, one line each (FLOPs, bytes and wire
     bytes a device, the three roofline terms at the H100's peaks, the
-    bottleneck, ``trace_s``; the train step's top 5 collective sites).
+    bottleneck, ``trace_s``; the train step's top 5 collective sites; the
+    torch version, since DTensor's layouts change with it); no operation
+    of ``attention.py`` may run replicated, and the train step's count
+    must stay under 3x the model's 6·N·D share.
     (b) one train step of qwen3-0.6b at full width and all 28 layers on
     the 3i batch (8 × 1,024) with DTensor parameters on a (1, 1) CUDA mesh
     of a one-rank NCCL group under ``fsdp_tp+act``, against the port's
@@ -201,8 +209,8 @@ after 3h's group is gone, its checks failing the run at its end:
     norm and every updated leaf bitwise, or within 1e-6 relative with
     each leaf's error printed; both steps' times (first and second call);
     the dry run's per-device memory for the same step beside
-    ``max_memory_allocated``.  Every line carries the card's name and
-    power limit.
+    ``max_memory_allocated``; nothing of ``attention.py`` replicated.
+    Every line carries the card's name and power limit.
 
 The pre-engine host loops (``core/legacy.py``) against the engine, right
 after 3n, its checks failing the run at its end:
@@ -870,6 +878,64 @@ def main_path_phase(torch, rt) -> int:
                          f"{racing} racing stages")
     rt["main_two_track"]["device_while"] = launches["device_while"]
     return launches["linear_value_grad"]
+
+
+# the names the registry phase registers the built-ins under
+REGISTERED = {"fixed_steps": "fixed_steps_registered",
+              "newton_cg": "newton_cg_registered"}
+
+
+def registry_phase(torch, rt, scale: float = 6.0,
+                   device: str = "cuda") -> dict:
+    """3a (registry): a FixedSteps and a NewtonCG registered under new
+    names (``register_policy``, ``register_optimizer``), quickstart@6
+    built through a RunSpec naming them, against the same spec under the
+    built-in names: every column, f̂ and the final w bitwise; B1's
+    launches in the registered run (counted from 0) the count its trace
+    implies.  The registrations are taken out at the end."""
+    api, ops = rt["api"], rt["ops"]
+    from repro_torch.core.engine import FixedSteps
+    from repro_torch.optim import NewtonCG
+    _, base = quickstart_specs(api, scale)
+    params = {"inner_steps": 4, "final_steps": 8}
+
+    def spec(policy, optimizer):
+        return api.RunSpec(**{**base, "optimizer": api.OptimizerSpec(
+            optimizer, base["optimizer"].params)},
+            policy=api.PolicySpec(policy, params))
+
+    api.register_policy(REGISTERED["fixed_steps"], FixedSteps)
+    api.register_optimizer(REGISTERED["newton_cg"], NewtonCG)
+    try:
+        builtin = api.build(spec("fixed_steps", "newton_cg"),
+                            device=device).run()
+        sess = api.build(spec(*REGISTERED.values()), device=device)
+        sync(torch, device)
+        ops.reset_calls()
+        t0 = time.perf_counter()
+        tr = sess.run()
+        sync(torch, device)
+        wall = time.perf_counter() - t0
+        launches = ops.CALLS.get("linear_value_grad", 0)
+    finally:
+        api.POLICIES._entries.pop(REGISTERED["fixed_steps"], None)
+        api.OPTIMIZERS._entries.pop(REGISTERED["newton_cg"], None)
+    diff = bitwise_diff(run_record(tr), run_record(builtin))
+    same_w = bool(torch.equal(tr.params, builtin.params))
+    implied = rt["methods"].kernel_calls(tr)
+    row = {"path": "convex_registered", "names": REGISTERED,
+           "steps": len(tr.points), "stages": tr.meta["stages"],
+           "bitwise": not diff and same_w, "differs": diff,
+           "launches": launches, "launches_implied": implied,
+           "wall_s": wall, "card": rt.get("smi", device)}
+    emit(row)
+    if diff or not same_w:
+        fail_later(f"registered names against built-in names: {diff}, "
+                   f"final w equal {same_w}")
+    if launches != implied:
+        fail_later(f"registered run: linear_value_grad launched {launches} "
+                   f"times, the trace implies {implied}")
+    return row
 
 
 def card_vs_cpu_phase(torch, rt) -> None:
@@ -2409,7 +2475,7 @@ def mesh_dry_run_phase(torch, rt, reduced: bool = False) -> list:
         else:
             res = dryrun.dry_run(MESH_ARCH, shape, policy=policy)
         row = {"path": "dry_run", "arch": MESH_ARCH, "shape": shape,
-               "policy": policy, "mesh": res["mesh"],
+               "policy": policy, "torch": res["torch"], "mesh": res["mesh"],
                "chips": res["chips"],
                "flops_per_device": res["flops_per_device"],
                "bytes_per_device": res["bytes_per_device"],
@@ -2433,6 +2499,17 @@ def mesh_dry_run_phase(torch, rt, reduced: bool = False) -> list:
                  ("flops_per_device", "bytes_per_device"))
         if not ok or not res["collectives"]:
             fail_later(f"dry run {shape} {policy}: {row}")
+        # the heads' layout is the port's: nothing of attention runs
+        # replicated, and the full-width step's count stays near 6·N·D
+        attn = [r for r in row["replicated"] if "attention.py" in r]
+        if attn:
+            fail_later(f"dry run {shape} {policy} ran attention "
+                       f"replicated: {attn}")
+        if shape == "train_4k" and not reduced and \
+                row["flops_per_device"] >= 3 * res["model_flops_per_device"]:
+            fail_later(f"dry run {shape} {policy}: "
+                       f"{row['flops_per_device']:.3e} FLOPs a device, 3x "
+                       f"the model's {res['model_flops_per_device']:.3e}")
     return rows
 
 
@@ -2535,6 +2612,7 @@ def mesh_step_phase(torch, rt, device: str = "cuda",
            "loss": scalars["loss"], "grad_norm": scalars["grad_norm"],
            "bitwise": bitwise, "max_rel_err": errs,
            "mesh_step_s": times, "plain_step_s": plain_times,
+           "torch": torch.__version__,
            "replicated": [f"{n['op']} at {n['site']}" for n in notes],
            "predicted_bytes": predicted,
            "predicted_argument_bytes":
@@ -2547,6 +2625,9 @@ def mesh_step_phase(torch, rt, device: str = "cuda",
     emit(row)
     if not bitwise and max(errs.values()) > MESH_TOL:
         fail_later(f"mesh train step against the plain step: {errs}")
+    if any("attention.py" in r for r in row["replicated"]):
+        fail_later(f"mesh train step ran attention replicated: "
+                   f"{row['replicated']}")
     if not all(math.isfinite(v) for pair in scalars.values() for v in pair):
         fail_later(f"mesh train step not finite: {scalars}")
     return row
@@ -4015,7 +4096,41 @@ def sass_phase(libs: dict) -> dict:
     return counts
 
 
-def main() -> None:
+# main()'s phases, in the order they run; ``--phases`` picks some (with
+# what each needs before it), for a short card call on one part
+PHASES = ("kernels", "convex", "registry", "while", "legacy", "obs",
+          "convex_plane", "convex_methods", "lm", "hybrid", "resume", "dist",
+          "mesh", "transformer", "sweep", "serving", "tiered", "card_vs_cpu")
+PHASE_NEEDS = {"while": ("convex",)}
+
+
+def selected_phases(argv=None) -> set:
+    """The phases ``--phases a,b`` names (all of them with no argument),
+    with those they need."""
+    import argparse
+    ap = argparse.ArgumentParser(description="Drive the port's main paths "
+                                 "on one card and check them.")
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phases to run (default: all): "
+                         + ", ".join(PHASES))
+    args = ap.parse_args(argv)
+    if args.phases is None:
+        return set(PHASES)
+    chosen = {p.strip() for p in args.phases.split(",") if p.strip()}
+    unknown = chosen - set(PHASES)
+    if unknown or not chosen:
+        ap.error(f"unknown phases {sorted(unknown)}; known: {PHASES}")
+    for p in list(chosen):
+        chosen.update(PHASE_NEEDS.get(p, ()))
+    return chosen
+
+
+def main(argv=None) -> None:
+    selected = selected_phases(argv)
+
+    def run(phase: str) -> bool:
+        return phase in selected
+
     # the full-width runs hold most of the card: segments that grow in
     # place keep the allocator's split blocks from stranding memory
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
@@ -4073,63 +4188,89 @@ def main() -> None:
     sass_phase(libs)
 
     # 2. kernels against their plain versions
-    main_row = kernel_phase(torch, rt)
-    scan_rows = scan_kernel_phase(torch, rt)
-    scan_row = scan_rows["falcon-mamba-7b"]
-    rglru_rows = rglru_kernel_phase(torch, rt)
-    rglru_row = rglru_rows["recurrentgemma-9b"]
-    attn_row = attention_kernel_phase(torch, rt)
+    if run("kernels"):
+        main_row = kernel_phase(torch, rt)
+        scan_rows = scan_kernel_phase(torch, rt)
+        scan_row = scan_rows["falcon-mamba-7b"]
+        rglru_rows = rglru_kernel_phase(torch, rt)
+        rglru_row = rglru_rows["recurrentgemma-9b"]
+        attn_row = attention_kernel_phase(torch, rt)
     # 3. the main paths, each with its own launch counts
-    launches = main_path_phase(torch, rt)
-    while_row = while_graph_phase(torch, rt)
-    legacy_phase(torch, rt)
-    obs_phase(torch, rt)
-    plane_launches = convex_plane_phase(torch, rt)
-    method_launches = convex_methods_phase(torch, rt)
-    lm_plane_vs_host_phase(torch, rt, "falcon-mamba-7b")
-    lm = lm_main_path_phase(torch, rt)
-    lm_plane_vs_host_phase(torch, rt, "recurrentgemma-9b")
-    hybrid = hybrid_main_path_phase(torch, rt)
-    resume_phase(torch, rt)
+    if run("convex"):
+        launches = main_path_phase(torch, rt)
+    if run("registry"):
+        registry_phase(torch, rt)
+    if run("while"):
+        while_row = while_graph_phase(torch, rt)
+    if run("legacy"):
+        legacy_phase(torch, rt)
+    if run("obs"):
+        obs_phase(torch, rt)
+    if run("convex_plane"):
+        plane_launches = convex_plane_phase(torch, rt)
+    if run("convex_methods"):
+        method_launches = convex_methods_phase(torch, rt)
+    if run("lm"):
+        lm_plane_vs_host_phase(torch, rt, "falcon-mamba-7b")
+        lm = lm_main_path_phase(torch, rt)
+    if run("hybrid"):
+        lm_plane_vs_host_phase(torch, rt, "recurrentgemma-9b")
+        hybrid = hybrid_main_path_phase(torch, rt)
+    if run("resume"):
+        resume_phase(torch, rt)
     # the multi-host runtime and elastic recovery
-    dist_launches = dist_convex_phase(torch, rt)
-    elastic_convex_phase(torch, rt)
-    dist_mamba = dist_lm_phase(torch, rt, "falcon-mamba-7b")
-    dist_hybrid = dist_lm_phase(torch, rt, "recurrentgemma-9b")
-    process_phase(torch, rt)
+    if run("dist"):
+        dist_launches = dist_convex_phase(torch, rt)
+        elastic_convex_phase(torch, rt)
+        dist_mamba = dist_lm_phase(torch, rt, "falcon-mamba-7b")
+        dist_hybrid = dist_lm_phase(torch, rt, "recurrentgemma-9b")
+        process_phase(torch, rt)
     # the launch tooling: the dry run, and a train step under a mesh
-    t0 = time.perf_counter()
-    mesh_dry_run_phase(torch, rt)
-    mesh_step_phase(torch, rt)
-    emit({"path": "launch_tooling", "phase_s": time.perf_counter() - t0,
-          "card": smi})
+    if run("mesh"):
+        t0 = time.perf_counter()
+        mesh_dry_run_phase(torch, rt)
+        mesh_step_phase(torch, rt)
+        emit({"path": "launch_tooling", "phase_s": time.perf_counter() - t0,
+              "card": smi})
     # the transformer and moe families, the zoo and the workload presets
-    tf_launches = {}
-    for arch, policy in TF_RUNS:
-        run = transformer_main_path_phase(torch, rt, arch, policy)
-        for k, v in run["launches"].items():
-            tf_launches[k] = tf_launches.get(k, 0) + v
-    zoo_phase(torch, rt)
-    presets = sweep_phase(torch, rt)
-    serve_preset = {k: v for r in presets if r["scenario"] == "serve"
-                    for k, v in r["kernel_calls"].items()}
+    if run("transformer"):
+        tf_launches = {}
+        for arch, policy in TF_RUNS:
+            tf_run = transformer_main_path_phase(torch, rt, arch, policy)
+            for k, v in tf_run["launches"].items():
+                tf_launches[k] = tf_launches.get(k, 0) + v
+        zoo_phase(torch, rt)
+    if run("sweep"):
+        presets = sweep_phase(torch, rt)
+        serve_preset = {k: v for r in presets if r["scenario"] == "serve"
+                        for k, v in r["kernel_calls"].items()}
     # serving: prefill and decode at full width, the closed loop, the A/B
-    serving = serving_phase(torch, rt)
-    serve_loop = serve_loop_phase(torch, rt)
-    serve_ab_phase(torch, rt)
+    if run("serving"):
+        serving = serving_phase(torch, rt)
+        serve_loop = serve_loop_phase(torch, rt)
+        serve_ab_phase(torch, rt)
     # the tiered corpus: a corpus four times its HBM budget
-    tiered = tiered_phase(torch, rt)
+    if run("tiered"):
+        tiered = tiered_phase(torch, rt)
     # 4. card against CPU
-    card_vs_cpu_phase(torch, rt)
-    for arch in ("falcon-mamba-7b", "recurrentgemma-9b") + tuple(
-            a for a, _ in TF_RUNS):
-        lm_card_vs_cpu_phase(torch, rt, arch)
-    serve_card_vs_cpu_phase(torch, rt)
-    hybrid_prefill = serving["hybrid"][
-        f"launches_pallas_{serving['hybrid']['prompt']}"]
+    if run("card_vs_cpu"):
+        card_vs_cpu_phase(torch, rt)
+        for arch in ("falcon-mamba-7b", "recurrentgemma-9b") + tuple(
+                a for a, _ in TF_RUNS):
+            lm_card_vs_cpu_phase(torch, rt, arch)
+        serve_card_vs_cpu_phase(torch, rt)
     if FAILED:
         raise SystemExit(f"chip_smoke: {len(FAILED)} checks failed: "
                          f"{FAILED}")
+    if selected != set(PHASES):
+        # a selection: the kernels' line needs every phase's counts
+        emit({"phases": [p for p in PHASES if p in selected]})
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return
+    hybrid_prefill = serving["hybrid"][
+        f"launches_pallas_{serving['hybrid']['prompt']}"]
 
     emit({"kernels": [{
         "name": "linear_value_grad", "route": "cuda",

@@ -1,9 +1,11 @@
-"""Named registries — every ported policy, optimizer, shard store, tier
-manager, topology and workload preset is addressable from a spec by name.
+"""Named registries — every policy, optimizer, shard store, tier manager,
+topology and workload preset of the port is addressable from a spec by
+name.
 
-A name the reference registers but this port does not carry yet raises a
-:class:`SpecError` that says so and names the slice that brings it,
-instead of an unknown-name error.
+Registries are plain name -> factory tables with clear unknown-name
+errors; the ``register_*`` hooks let downstream code add components
+without touching this module (a new workload becomes a spec, not a new
+script), as the reference's do.
 """
 from __future__ import annotations
 
@@ -23,14 +25,11 @@ from .specs import OptimizerSpec, PolicySpec, SpecError
 
 
 class Registry:
-    """A name -> factory table with actionable lookup errors.  ``pending``
-    maps reference names not yet ported to the slice that brings them."""
+    """A name -> factory table with actionable lookup errors."""
 
-    def __init__(self, kind: str, entries: dict[str, Any] | None = None,
-                 pending: dict[str, str] | None = None):
+    def __init__(self, kind: str, entries: dict[str, Any] | None = None):
         self.kind = kind
         self._entries: dict[str, Any] = dict(entries or {})
-        self.pending: dict[str, str] = dict(pending or {})
 
     def register(self, name: str, factory: Any) -> Any:
         self._entries[name] = factory
@@ -39,6 +38,9 @@ class Registry:
     def names(self) -> list[str]:
         return sorted(self._entries)
 
+    def items(self):
+        return self._entries.items()
+
     def __contains__(self, name: str) -> bool:
         return name in self._entries
 
@@ -46,11 +48,6 @@ class Registry:
         try:
             return self._entries[name]
         except KeyError:
-            if name in self.pending:
-                raise SpecError(
-                    f"{self.kind} {name!r} is not yet ported to repro_torch "
-                    f"(it comes with {self.pending[name]}); ported: "
-                    f"{sorted(self._entries)}") from None
             close = difflib.get_close_matches(str(name), self._entries,
                                               n=3, cutoff=0.5)
             hint = f" did you mean {', '.join(map(repr, close))}?" \
@@ -106,6 +103,18 @@ TOPOLOGIES = Registry("topology", {
 WORKLOADS = Registry("workload")
 
 
+def register_policy(name: str, cls) -> Any:
+    return POLICIES.register(name, cls)
+
+
+def register_optimizer(name: str, cls) -> Any:
+    return OPTIMIZERS.register(name, cls)
+
+
+def register_store(name: str, cls) -> Any:
+    return STORES.register(name, cls)
+
+
 def register_tier_manager(name: str, cls) -> Any:
     return TIERS.register(name, cls)
 
@@ -146,7 +155,6 @@ def build_optimizer(spec: OptimizerSpec) -> BatchOptimizer:
         raise SpecError(f"optimizer {spec.name!r}: {e}") from None
 
 
-
 def optimizer_spec_of(opt: BatchOptimizer) -> OptimizerSpec:
     """The spec a concrete optimizer instance round-trips through —
     drivers hand pre-built optimizers to the spec'd sessions with this."""
@@ -159,7 +167,7 @@ def optimizer_spec_of(opt: BatchOptimizer) -> OptimizerSpec:
     if opt.name not in OPTIMIZERS:
         raise SpecError(
             f"optimizer {type(opt).__name__} (name={opt.name!r}) is not "
-            f"registered")
+            f"registered; register_optimizer() it first")
     params = {f.name: getattr(opt, f.name)
               for f in dataclasses.fields(opt) if f.name != "name"}
     return OptimizerSpec(name=opt.name, params=params)
@@ -169,15 +177,18 @@ def make_store(spec_store: str, array, shard_size: int, *,
                workdir: str | None = None, field: str = "data",
                delay_s: float = 0.0):
     """One field array -> a ShardStore per the DataSpec's storage knobs."""
-    STORES.get(spec_store)          # raises with the registered names
     if spec_store == "memory":
         store = InMemoryShardStore(array, shard_size)
-    else:
+    elif spec_store == "memmap":
         if workdir is None:
             raise SpecError("store='memmap' needs DataSpec.workdir (the "
                             "shard directory)")
         store = MemmapShardStore.write(array, f"{workdir}/{field}",
                                        shard_size)
+    else:
+        STORES.get(spec_store)      # raises with the registered names
+        raise SpecError(f"store {spec_store!r} is registered but not "
+                        f"constructible from a DataSpec")
     if delay_s > 0:
         store = ThrottledStore(store, delay_s)
     return store

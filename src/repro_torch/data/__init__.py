@@ -9,3 +9,15 @@ from .device_window import (DeviceWindow, HostWindows, MaskedWindow,
                             probe_rows, rolling_subwindow, rotation_rows,
                             window_rows)
 from .plane import StreamingDataset
+
+_TIERS = ("HostRing", "RingTierManager", "TieredCorpus", "TierMeter")
+
+
+def __getattr__(name: str):
+    """The tiered corpus's names, as the reference's package exports them,
+    imported on first use: ``data.tiers`` reaches the stage checkpoints,
+    which import this package's plane."""
+    if name in _TIERS:
+        from . import tiers
+        return getattr(tiers, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -70,8 +70,8 @@ class SimulatedTopology(HostTopology):
     num_hosts`` the pool is split into contiguous per-host groups,
     otherwise hosts share devices cyclically.  The grouping places nothing
     yet: every lane of the stacked window lives on ``window_device()``, the
-    first host's first device, until lanes are split across devices
-    (ROADMAP queue A12)."""
+    first host's first device; splitting lanes across devices needs one
+    process a host (ROADMAP F1)."""
 
     def __init__(self, num_hosts: int, *, devices=None):
         if num_hosts < 1:

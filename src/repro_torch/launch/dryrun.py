@@ -347,6 +347,9 @@ def dry_run(arch: str, shape_name: str, *, multi_pod: bool = False,
     result = {
         "arch": arch, "shape": shape_name, "kind": kind,
         "mesh": mesh_label(mesh), "policy": policy, "chips": int(n_chips),
+        # the counts and notes depend on DTensor's strategies, which
+        # change between torch versions
+        "torch": torch.__version__,
         "trace_s": round(trace_s, 1),
         "flops_per_device": flops_dev,
         "bytes_per_device": bytes_dev,

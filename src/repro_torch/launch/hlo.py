@@ -70,16 +70,19 @@ def _wire_bytes(kind: str, out_bytes: int, n: int) -> float:
 _PKG = "repro_torch"
 _MODELS = os.path.join(_PKG, "models")
 _HERE = os.path.join(_PKG, "launch", "hlo.py")
+# the layout helpers' frames: a site is the model line that called them
+_LAYOUT = os.path.join(_MODELS, "shard_ctx.py")
 
 
 def _frame_site(models_only: bool) -> str | None:
     f = sys._getframe(2)
     while f is not None:
         fn = f.f_code.co_filename
-        if _MODELS in fn or (not models_only and _PKG in fn
-                             and not fn.endswith(_HERE)
-                             and os.path.join("obs", "profile") not in fn
-                             and "shardings" not in fn):
+        if not fn.endswith(_LAYOUT) and (
+                _MODELS in fn or (not models_only and _PKG in fn
+                                  and not fn.endswith(_HERE)
+                                  and os.path.join("obs", "profile") not in fn
+                                  and "shardings" not in fn)):
             return f"{fn[fn.index(_PKG):]}:{f.f_lineno}"
         f = f.f_back
     return None

@@ -280,12 +280,14 @@ _MODELS_DIR = os.path.join("repro_torch", "models")
 
 def _model_site() -> str:
     """file:line of the innermost frame in the port's models (the op's
-    origin), else of the innermost frame in ``repro_torch``."""
+    origin; the head-layout helpers of ``shard_ctx.py`` name the model
+    line that called them), else of the innermost frame in
+    ``repro_torch``."""
     f = sys._getframe(1)
     fallback = "?"
     while f is not None:
         fn = f.f_code.co_filename
-        if _MODELS_DIR in fn:
+        if _MODELS_DIR in fn and not fn.endswith("shard_ctx.py"):
             return f"{fn[fn.index('repro_torch'):]}:{f.f_lineno}"
         if fallback == "?" and "repro_torch" in fn \
                 and not fn.endswith("shardings.py"):

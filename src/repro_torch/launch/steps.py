@@ -113,6 +113,14 @@ def init_opt_state(params):
     return adamw_init(params)
 
 
+def opt_state_specs(params_shape):
+    """The AdamW state of an abstract parameter tree, as meta tensors (the
+    reference's ``ShapeDtypeStruct``s from ``jax.eval_shape``)."""
+    return adamw_init(tree_map(
+        lambda x: torch.empty(x.shape, dtype=x.dtype, device="meta"),
+        params_shape))
+
+
 def make_prefill_step(cfg: ModelConfig, *, impl: str = "xla",
                       cache_len: int | None = None):
     def prefill_fn(params, batch):

@@ -148,7 +148,8 @@ def _run_workload(name: str, *, device: str, dry_run: bool) -> None:
     spec = get_workload(name).spec()
     if dry_run:
         print(spec.to_json())
-        # build refuses a serve or obs spec (ROADMAP queue A11)
+        # build refuses a serve spec, naming serve.build_loop, as the
+        # reference's does
         with build(spec, device=device) as session:
             for info in session.stage_plan():
                 print(f"stage {info.stage}: window {info.n_t}"

@@ -1,1 +1,2 @@
-from . import linear
+from .common import ModelConfig
+from . import linear, transformer, attention, moe, mamba, rglru, layers

@@ -12,17 +12,16 @@ import torch
 from ..kernels import ops
 from .common import ModelConfig
 from .layers import apply_mrope, apply_rope, causal_mask_bias, rms_norm
-from .shard_ctx import shard
+from .shard_ctx import heads_local, reshape, shard, split_heads
 
 
 def qkv_project(cfg: ModelConfig, p, x, positions):
     """x: (B,S,d) -> q (B,S,H,hd), k,v (B,S,KV,hd): q and k RMS-normed
     over the head dim under qk-norm, then rotated (RoPE, or M-RoPE with
     (3, B, S) positions)."""
-    B, S, _ = x.shape
-    q = (x @ p["wq"]).reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = (x @ p["wk"]).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = (x @ p["wv"]).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    q = split_heads(x @ p["wq"], cfg.num_heads, cfg.head_dim)
+    k = split_heads(x @ p["wk"], cfg.num_kv_heads, cfg.head_dim)
+    v = split_heads(x @ p["wv"], cfg.num_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -43,7 +42,7 @@ def _gqa_scores(q, k):
     """q: (B,Sq,H,hd), k: (B,Sk,KV,hd) -> (B,KV,H/KV,Sq,Sk)."""
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
-    qg = q.reshape(B, Sq, KV, H // KV, hd)
+    qg = reshape(q, (B, Sq, KV, H // KV, hd))
     return torch.einsum("bqkgh,bskh->bkgqs", qg, k) / (hd ** 0.5)
 
 
@@ -51,25 +50,27 @@ def _gqa_out(probs, v):
     """probs: (B,KV,G,Sq,Sk), v: (B,Sk,KV,hd) -> (B,Sq,H,hd)."""
     out = torch.einsum("bkgqs,bskh->bqkgh", probs, v)
     B, Sq, KV, G, hd = out.shape
-    return out.reshape(B, Sq, KV * G, hd)
+    return reshape(out, (B, Sq, KV * G, hd))
 
 
 def causal_attention(cfg: ModelConfig, q, k, v, *, q_chunk: int = 512,
-                     window: int = 0):
+                     window: int = 0, q_offset: int = 0):
     """Chunked causal self-attention: a loop over query chunks, each
     attending to the full (or windowed) prefix, so the scores are
-    O(q_chunk · S) at a time instead of O(S²)."""
+    O(q_chunk · S) at a time instead of O(S²).  ``q_offset``: the position
+    of q's first row among k's (a block of the queries)."""
     B, S, H, hd = q.shape
     window = window or cfg.sliding_window
     q_chunk = min(q_chunk, S)
     if S % q_chunk:
         raise ValueError(f"seq_len {S} is not a multiple of the query "
                          f"chunk {q_chunk}")
-    k_pos = torch.arange(S, device=q.device)
+    k_pos = torch.arange(k.shape[1], device=q.device)
     outs = []
     for c0 in range(0, S, q_chunk):
         scores = _gqa_scores(q[:, c0:c0 + q_chunk], k)       # (B,KV,G,qc,S)
-        bias = causal_mask_bias(k_pos[c0:c0 + q_chunk], k_pos, window)
+        c = q_offset + c0
+        bias = causal_mask_bias(k_pos[c:c + q_chunk], k_pos, window)
         probs = torch.softmax(scores.float() + bias, dim=-1).to(q.dtype)
         outs.append(_gqa_out(probs, v))
     return torch.cat(outs, dim=1)
@@ -100,12 +101,15 @@ def attention_block(cfg: ModelConfig, p, x, positions, *, impl: str = "xla",
     k = shard(k, "attn_batch")
     v = shard(v, "attn_batch")
     if impl == "pallas":
-        out = ops.flash_attention(q, k, v, causal=True,
-                                  window=window or cfg.sliding_window)
+        out = heads_local(lambda q, k, v: ops.flash_attention(
+            q, k, v, causal=True, window=window or cfg.sliding_window),
+            q, k, v)
     else:
-        out = causal_attention(cfg, q, k, v, window=window)
+        out = heads_local(lambda q, k, v, q_offset=0: causal_attention(
+            cfg, q, k, v, window=window, q_offset=q_offset), q, k, v,
+            query_blocks=True)
     B, S = x.shape[:2]
-    out = shard(out.reshape(B, S, cfg.q_dim), "act_btd_full")
+    out = shard(reshape(out, (B, S, cfg.q_dim)), "act_btd_full")
     y = out @ p["wo"]
     return (y, (k, v)) if return_kv else y
 
@@ -130,4 +134,4 @@ def decode_attention_block(cfg: ModelConfig, p, x, cache, position: int, *,
     cache["v"][:, slot:slot + 1].copy_(v)
     out = decode_attention(cfg, q, cache["k"], cache["v"],
                            min(position + 1, S))
-    return out.reshape(B, 1, cfg.q_dim) @ p["wo"], cache
+    return reshape(out, (B, 1, cfg.q_dim)) @ p["wo"], cache

@@ -46,7 +46,7 @@ from .layers import dense_init, rms_norm, swiglu
 from .mamba import mamba_block, mamba_decode_step
 from .moe import moe_block
 from .rglru import recurrent_block
-from .shard_ctx import shard
+from .shard_ctx import reduced_grad, residual, shard
 
 
 def vocab_padded(cfg: ModelConfig) -> int:
@@ -203,22 +203,22 @@ def param_specs(cfg: ModelConfig) -> dict:
 def _layer_body(cfg: ModelConfig, t: str, p, x, positions, impl: str):
     """One layer of type ``t``: pre-norm residual block(s) -> (x, aux)."""
     x = shard(x, "act_btd")
-    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    h = reduced_grad(rms_norm(x, p["norm1"], cfg.norm_eps))
     if t == "ssm":
-        return x + mamba_block(cfg, p, h, impl=impl), {}
+        return residual(x, mamba_block(cfg, p, h, impl=impl)), {}
     if t in ("attn_mlp", "attn", "moe"):
         window = cfg.local_window if t == "attn" else cfg.sliding_window
-        x = x + attention_block(cfg, p, h, positions, impl=impl,
-                                window=window)
+        x = residual(x, attention_block(cfg, p, h, positions, impl=impl,
+                                        window=window))
     elif t == "rec":
-        x = x + recurrent_block(cfg, p, h, impl=impl)
+        x = residual(x, recurrent_block(cfg, p, h, impl=impl))
     else:
         raise ValueError(t)
-    h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
+    h2 = reduced_grad(rms_norm(x, p["norm2"], cfg.norm_eps))
     if t == "moe":
         y, aux = moe_block(cfg, p, h2)
-        return x + y, aux
-    return x + swiglu(h2, p["w_gate"], p["w_up"], p["w_down"]), {}
+        return residual(x, y), aux
+    return residual(x, swiglu(h2, p["w_gate"], p["w_up"], p["w_down"])), {}
 
 
 def _sum_aux(auxs: list) -> dict:
@@ -332,6 +332,7 @@ def lm_loss(cfg: ModelConfig, h, lm_head, labels, *, chunk: int = 512):
     if S % chunk:
         raise ValueError(f"seq_len {S} is not a multiple of the loss "
                          f"chunk {chunk}")
+    h = reduced_grad(h)                 # the LM head's input
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(0, S, chunk):
         total = total + _remat(_chunk_loss, h[:, i:i + chunk], lm_head,

@@ -4,7 +4,7 @@ the port's copy of ``repro.obs.fleet`` (no JAX there either).
 The dist/elastic runtimes historically funneled every host's telemetry
 through one process-global :class:`~repro_torch.obs.events.EventRecorder` —
 fine for the simulated topology, a dead end for real multi-process SPMD
-(ROADMAP item 1), where each process has its own ``perf_counter`` origin
+(one process a host), where each process has its own ``perf_counter`` origin
 and its own log file.  This module makes per-host streams first-class:
 
   * :class:`FleetRecorder` — a *driver* lane (engine stage spans, run

@@ -1,6 +1,6 @@
 from .api import (BatchOptimizer, armijo_line_search, hessian_vector_product,
-                  quadratic_exact_step, tree_axpy, tree_dot, tree_scale,
-                  tree_zeros_like)
+                  quadratic_exact_step, tree_add, tree_axpy, tree_dot,
+                  tree_norm, tree_scale, tree_sub, tree_zeros_like)
 from .gd import GradientDescent
 from .nonlinear_cg import NonlinearCG
 from .lbfgs import LBFGS
@@ -16,3 +16,7 @@ REGISTRY = {
     "adagrad": Adagrad,
     "adamw": AdamW,
 }
+
+
+def make_optimizer(name: str, **kwargs) -> BatchOptimizer:
+    return REGISTRY[name](**kwargs)

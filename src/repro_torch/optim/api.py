@@ -51,6 +51,22 @@ def tree_dot(a, b):
     return torch.sum(a * b)
 
 
+def tree_add(a, b):
+    """a + b, leaf by leaf (a tensor is a tree of one leaf)."""
+    return tree_map(torch.add, a, b)
+
+
+def tree_sub(a, b):
+    return tree_map(torch.sub, a, b)
+
+
+def tree_norm(a):
+    """‖a‖₂ over every leaf, summed in float32 as the reference's
+    ``tree_dot`` does."""
+    return torch.sqrt(sum(torch.sum(x.float() * x.float())
+                          for x in tree_leaves(a)))
+
+
 def tree_axpy(c, x, y):
     """y + c*x."""
     return y + c * x

@@ -9,6 +9,11 @@ import torch
 from .api import BatchOptimizer, Objective, armijo_line_search, tree_axpy, tree_scale
 
 
+class GDState(dict):
+    """The reference's name for gradient descent's state (which its
+    optimizer, like this one, keeps as a plain dict)."""
+
+
 @dataclasses.dataclass(frozen=True)
 class GradientDescent(BatchOptimizer):
     name: str = "gd"

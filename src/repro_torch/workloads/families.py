@@ -16,6 +16,7 @@ that carries its training traffic, the reference's four:
 from __future__ import annotations
 
 import dataclasses
+from typing import Protocol, runtime_checkable
 
 from .. import configs
 from ..api.lm import LMStepOptimizer, make_lm_objective
@@ -23,6 +24,23 @@ from ..api.specs import ModelSpec, SpecError
 from ..launch import steps
 from ..models import transformer as T
 from ..models.common import ModelConfig
+
+
+@runtime_checkable
+class ModelFamily(Protocol):
+    """What building a session needs from a workload family: parameter
+    init, a ``BatchOptimizer`` wrapping the family's train step, and the
+    probe objective, all from the same ``ModelConfig`` (the reference's
+    protocol; parameters come from a seed on a device here, from a PRNG
+    key there)."""
+    name: str
+    impl: str                       # layer implementation: "xla" | "pallas"
+    kernels: tuple                  # ops.CALLS keys training routes through
+
+    def build_params(self, cfg: ModelConfig, seed: int, *, device): ...
+    def step(self, cfg: ModelConfig, *, lr: float,
+             batch_size: int) -> LMStepOptimizer: ...
+    def objective(self, cfg: ModelConfig, eval_rows: int): ...
 
 
 @dataclasses.dataclass(frozen=True)

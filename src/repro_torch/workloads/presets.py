@@ -22,8 +22,8 @@ simulated hosts with a mid-run host kill.  Every composed spec is tiny
 (reduced configs + aggressive overrides) and equal to the reference's
 through ``to_dict()``; scale up by ``.replace()``-ing the returned spec.
 The ``serve`` and ``obs`` tokens compose their specs as the reference
-does, and ``build`` refuses those specs until their slice (ROADMAP queue
-A11).
+does: ``build`` runs an obs spec, and refuses a serve spec, naming
+``repro_torch.serve.build_loop``, as the reference's ``build`` does.
 
 Registered presets (:data:`PRESETS`) land in
 ``repro_torch.api.WORKLOADS``; unregistered-but-parseable strings work

@@ -1,6 +1,8 @@
 """One rank of ``test_torch_sharded_step.py``'s 2×2 gloo world: the
 port's train step on DTensor parameters against its unsharded step, and
-the local shards of a tensor of distinct values under four specs.  Rank
+the local shards of a tensor of distinct values under four specs; and of
+``test_torch_head_split.py``'s worlds (``main_heads``: a mesh of the
+model-axis size given, configs with their head counts overridden).  Rank
 0 saves what the test reads.  Imports no JAX."""
 import datetime
 import pathlib
@@ -21,7 +23,8 @@ def warm_state(params):
             "t": torch.tensor(10, dtype=torch.int32)}
 
 
-def run_case(mesh, arch: str, policy: str) -> dict:
+def run_case(mesh, arch: str, policy: str, overrides=None) -> dict:
+    """``overrides``: config fields, and ``batch`` (default 4)."""
     from repro_torch import configs
     from repro_torch.launch import shardings as SH
     from repro_torch.launch import steps
@@ -30,13 +33,16 @@ def run_case(mesh, arch: str, policy: str) -> dict:
     from repro_torch.models import transformer as T
     from repro_torch.optim.api import tree_map
 
-    cfg = configs.reduced(configs.get(arch)).with_(dtype=torch.float32)
+    overrides = dict(overrides or {})
+    B = overrides.pop("batch", 4)
+    cfg = configs.reduced(configs.get(arch)).with_(dtype=torch.float32,
+                                                   **overrides)
     params = T.init_params(cfg, 0, device="cpu")
     base, *variants = policy.split("+")
     specs = SH.param_specs_tree(cfg, params, mesh, base)
     sharded = SH.distribute_tree(params, specs, mesh)
     gen = torch.Generator().manual_seed(1)
-    B, S = 4, 64
+    S = 64
     batch = {k: torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
                               dtype=torch.int32)
              for k in ("tokens", "labels")}
@@ -92,6 +98,24 @@ def main(rank: int, world: int, init: str, cases, out_dir: str) -> None:
                           .to_local() for s in LAYOUT_SPECS]}
         for arch, policy in cases:
             res[(arch, policy)] = run_case(mesh, arch, policy)
+        torch.save(res, pathlib.Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def main_heads(rank: int, world: int, init: str, model: int, cases,
+               out_dir: str) -> None:
+    """``cases``: (name, arch, policy, config overrides) on a
+    (world // model, model) mesh."""
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        from repro_torch.launch.mesh import make_host_mesh
+        mesh = make_host_mesh(model=model)
+        res = {name: run_case(mesh, arch, policy, overrides)
+               for name, arch, policy, overrides in cases}
         torch.save(res, pathlib.Path(out_dir) / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()

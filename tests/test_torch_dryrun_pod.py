@@ -40,10 +40,12 @@ def test_qwen3_train_step_on_16x16(train_result):
     # forward twice), far less than the global count
     share = res["model_flops_per_device"]
     assert share < res["flops_per_device"] < 3 * share
-    # the gather always; the other ops DTensor refuses vary with torch
+    # the gather always; the other ops DTensor refuses vary with torch,
+    # but none is attention's (the heads' layout is the port's)
     assert "aten.gather.default" in {n["op"] for n in res["notes"]}
     for n in res["notes"]:
         assert n["site"].startswith(("repro_torch/models/", "backward:"))
+        assert "attention.py" not in n["site"], n
 
 
 def test_forensics_ranks_the_train_steps_sites(train_result):

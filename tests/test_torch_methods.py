@@ -355,12 +355,12 @@ def test_run_method_set_matches_reference():
 
 def test_every_registered_name_builds_and_runs():
     """The registries hold the reference's names (``traffic_driven`` since
-    the serve slice, none pending) and each builds through
-    build(RunSpec)."""
+    the serve slice; no map of names still to port is left) and each
+    builds through build(RunSpec)."""
     assert set(P.OPTIMIZERS.names()) == set(R.registry.OPTIMIZERS.names())
     assert set(P.POLICIES.names()) == set(R.registry.POLICIES.names())
-    assert not P.POLICIES.pending
-    assert not P.OPTIMIZERS.pending
+    assert not hasattr(P.POLICIES, "pending")
+    assert not hasattr(P.OPTIMIZERS, "pending")
     data = P.DataSpec(dataset="w8a_like", scale=0.02, lam=1e-3)
     for name in P.OPTIMIZERS.names():
         if name == "adamw_lm":

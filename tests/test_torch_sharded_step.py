@@ -96,7 +96,8 @@ def test_updated_leaves_keep_their_placements(ranks):
     assert placements["final_norm"] == "(Replicate(), Replicate())"
     # the loss's gold-logit gather always runs with its vocabulary dim
     # replicated; which other ops DTensor refuses depends on the torch
-    # version (2.11 adds views and the embedding's backward index_put)
+    # version (2.11 adds the embedding's backward index_put), but never
+    # one of attention's: its heads' layout is the port's
     notes = ranks[0][("qwen3_0p6b", "fsdp_tp")]["notes"]
     gather = [n for n in notes if n["op"] == "aten.gather.default"]
     assert [n["site"] for n in gather] == \
@@ -104,6 +105,7 @@ def test_updated_leaves_keep_their_placements(ranks):
     for n in notes:
         assert n["layout"] == "Replicate" and n["reason"], n
         assert n["site"].startswith(("repro_torch/models/", "backward:")), n
+        assert "attention.py" not in n["site"], n
 
 
 def test_local_shards_are_jax_row_major_blocks(ranks):

@@ -522,6 +522,29 @@ def test_tiered_phase_specs_and_claims_on_the_cpu(monkeypatch):
         is False
 
 
+def test_registry_phase_runs_small_on_the_cpu(monkeypatch, tmp_path):
+    """chip_smoke.py's registered-name run at quickstart@0.25: bitwise the
+    built-in names' run, the wrapper called as often as the trace implies,
+    and the registrations gone afterwards."""
+    rt = _cpu_rt(monkeypatch, tmp_path)
+    row = chip_smoke.registry_phase(torch, rt, scale=0.25, device="cpu")
+    assert chip_smoke.FAILED == []
+    assert row["bitwise"] and row["differs"] == []
+    assert row["launches"] == row["launches_implied"] > 0
+    assert not any(n in P.POLICIES or n in P.OPTIMIZERS
+                   for n in chip_smoke.REGISTERED.values())
+
+
+def test_phase_selection():
+    """No argument selects every phase; ``--phases`` the named ones with
+    what they need; an unknown name is refused."""
+    assert chip_smoke.selected_phases([]) == set(chip_smoke.PHASES)
+    assert chip_smoke.selected_phases(["--phases", "while,mesh"]) == \
+        {"convex", "while", "mesh"}
+    with pytest.raises(SystemExit):
+        chip_smoke.selected_phases(["--phases", "nope"])
+
+
 def _mesh_rt():
     from repro_torch import configs
     from repro_torch.launch import dryrun, forensics, mesh, shardings, steps
