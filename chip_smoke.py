@@ -199,18 +199,21 @@ after 3h's group is gone, its checks failing the run at its end:
     ``decode_32k`` under ``tp``, one line each (FLOPs, bytes and wire
     bytes a device, the three roofline terms at the H100's peaks, the
     bottleneck, ``trace_s``; the train step's top 5 collective sites; the
-    torch version, since DTensor's layouts change with it); no operation
-    of ``attention.py`` may run replicated, and the train step's count
-    must stay under 3x the model's 6·N·D share.
-    (b) one train step of qwen3-0.6b at full width and all 28 layers on
-    the 3i batch (8 × 1,024) with DTensor parameters on a (1, 1) CUDA mesh
-    of a one-rank NCCL group under ``fsdp_tp+act``, against the port's
-    plain train step on the same parameters and batch: loss, gradient
-    norm and every updated leaf bitwise, or within 1e-6 relative with
-    each leaf's error printed; both steps' times (first and second call);
-    the dry run's per-device memory for the same step beside
-    ``max_memory_allocated``; nothing of ``attention.py`` replicated.
-    Every line carries the card's name and power limit.
+    torch version, since DTensor's layouts change with it); then
+    granite-moe-1b-a400m's ``train_4k`` under ``fsdp_tp`` (the experts'
+    layout), whose count must be the CPU's (``CPU_FLOPS``) within 1 %; no
+    operation of ``attention.py`` or ``moe.py`` may run replicated, and a
+    train step's count must stay under 3x the model's 6·N·D share.
+    (b) one train step of qwen3-0.6b at full width and all 28 layers, then
+    one of granite-moe-1b-a400m at full width and all 24 layers, on the
+    3i batch (8 × 1,024) with DTensor parameters on a (1, 1) CUDA mesh
+    of a one-rank NCCL group under ``fsdp_tp+act``, each against the
+    port's plain train step on the same parameters and batch: loss,
+    gradient norm and every updated leaf bitwise, or within 1e-6 relative
+    with each leaf's error printed; both steps' times (first and second
+    call); the dry run's per-device memory for the same step beside
+    ``max_memory_allocated``; nothing of ``attention.py`` or ``moe.py``
+    replicated.  Every line carries the card's name and power limit.
 
 The pre-engine host loops (``core/legacy.py``) against the engine, right
 after 3n, its checks failing the run at its end:
@@ -2453,6 +2456,15 @@ MESH_ARCH = "qwen3-0.6b"
 MESH_DRY_RUNS = (("train_4k", "fsdp_tp"), ("decode_32k", "tp"))
 MESH_POLICY = "fsdp_tp+act"
 MESH_TOL = 1e-6
+# the MoE block's layout (``shard_ctx.experts_local``): granite-moe-1b-a400m's
+# train step on the 16×16 fake world, whose count a device must match the
+# CPU's within MOE_COUNT_TOL (the card's torch lays DTensor out otherwise;
+# CPU_FLOPS from ``python -m repro_torch.launch.dryrun --arch ... --shape
+# ... --policy ...`` on torch 2.13.0+cpu), and one step on the (1, 1) mesh
+MOE_ARCH = "granite-moe-1b-a400m"
+MOE_DRY_RUNS = (("train_4k", "fsdp_tp"),)
+CPU_FLOPS = {(MOE_ARCH, "train_4k", "fsdp_tp"): 29695403884544.0}
+MOE_COUNT_TOL = 0.01
 
 
 def _rel_err(a, b) -> float:
@@ -2460,21 +2472,23 @@ def _rel_err(a, b) -> float:
     return d / max(b.double().abs().max().item(), 1e-30)
 
 
-def mesh_dry_run_phase(torch, rt, reduced: bool = False) -> list:
+def mesh_dry_run_phase(torch, rt, reduced: bool = False,
+                       arch: str = MESH_ARCH,
+                       runs: tuple = MESH_DRY_RUNS) -> list:
     """3q (a): the dry run's lines, with the train step's top 5 sites.
     ``reduced`` (the CPU test) runs the reduced config on a 2×2 world."""
     dryrun, forensics, mesh = rt["dryrun"], rt["forensics"], rt["mesh"]
     rows = []
-    for shape, policy in MESH_DRY_RUNS:
+    for shape, policy in runs:
         if reduced:
-            cfg = rt["configs"].reduced(rt["configs"].get(MESH_ARCH))
+            cfg = rt["configs"].reduced(rt["configs"].get(arch))
             with mesh.fake_world(4):
-                res = dryrun.dry_run(MESH_ARCH, shape, policy=policy,
+                res = dryrun.dry_run(arch, shape, policy=policy,
                                      cfg=cfg,
                                      mesh=mesh.make_host_mesh(model=2))
         else:
-            res = dryrun.dry_run(MESH_ARCH, shape, policy=policy)
-        row = {"path": "dry_run", "arch": MESH_ARCH, "shape": shape,
+            res = dryrun.dry_run(arch, shape, policy=policy)
+        row = {"path": "dry_run", "arch": arch, "shape": shape,
                "policy": policy, "torch": res["torch"], "mesh": res["mesh"],
                "chips": res["chips"],
                "flops_per_device": res["flops_per_device"],
@@ -2493,28 +2507,41 @@ def mesh_dry_run_phase(torch, rt, reduced: bool = False) -> list:
         if shape == "train_4k":
             row["top_sites"] = forensics.report(
                 forensics.collective_sites(res), 5)[1:]
+        cpu = None if reduced else CPU_FLOPS.get((arch, shape, policy))
+        if cpu:
+            row["cpu_flops_per_device"] = cpu
         emit(row)
         rows.append(row)
         ok = all(math.isfinite(row[k]) and row[k] > 0 for k in
                  ("flops_per_device", "bytes_per_device"))
         if not ok or not res["collectives"]:
             fail_later(f"dry run {shape} {policy}: {row}")
-        # the heads' layout is the port's: nothing of attention runs
-        # replicated, and the full-width step's count stays near 6·N·D
-        attn = [r for r in row["replicated"] if "attention.py" in r]
-        if attn:
-            fail_later(f"dry run {shape} {policy} ran attention "
-                       f"replicated: {attn}")
+        # the heads' and the experts' layouts are the port's: nothing of
+        # attention or the MoE block runs replicated, and the full-width
+        # step's count stays near 6·N·D, and at the CPU's where it is known
+        own = [r for r in row["replicated"] if _own_layout(r)]
+        if own:
+            fail_later(f"dry run {arch} {shape} {policy} ran replicated: "
+                       f"{own}")
         if shape == "train_4k" and not reduced and \
                 row["flops_per_device"] >= 3 * res["model_flops_per_device"]:
-            fail_later(f"dry run {shape} {policy}: "
+            fail_later(f"dry run {arch} {shape} {policy}: "
                        f"{row['flops_per_device']:.3e} FLOPs a device, 3x "
                        f"the model's {res['model_flops_per_device']:.3e}")
+        if cpu and abs(row["flops_per_device"] / cpu - 1) > MOE_COUNT_TOL:
+            fail_later(f"dry run {arch} {shape} {policy}: "
+                       f"{row['flops_per_device']:.6e} FLOPs a device "
+                       f"against the CPU's {cpu:.6e}")
     return rows
 
 
+def _own_layout(site: str) -> bool:
+    """A replicated op at a site whose layout the port chooses."""
+    return "attention.py" in site or "moe.py" in site
+
+
 def mesh_step_phase(torch, rt, device: str = "cuda",
-                    reduced: bool = False) -> dict:
+                    reduced: bool = False, arch: str = MESH_ARCH) -> dict:
     """3q (b): one train step with DTensor parameters on a (1, 1) mesh of
     a one-rank group (NCCL on the card, gloo on the CPU) against the plain
     train step on the same parameters and batch; the dry run's memory for
@@ -2524,14 +2551,14 @@ def mesh_step_phase(torch, rt, device: str = "cuda",
     configs, T = rt["configs"], rt["transformer"]
     dryrun, mesh, SH = rt["dryrun"], rt["mesh"], rt["shardings"]
     steps, shard_ctx, tree_map = rt["steps"], rt["shard_ctx"], rt["tree_map"]
-    cfg = configs.get(MESH_ARCH)
+    cfg = configs.get(arch)
     B, S = TF_BATCH, TF_SEQ
     if reduced:
         cfg = configs.reduced(cfg).with_(dtype=torch.float32)
         B, S = 2, 64
     t0 = time.perf_counter()
     with mesh.fake_world(1):
-        pred = dryrun.dry_run(MESH_ARCH, "train_4k", policy=MESH_POLICY,
+        pred = dryrun.dry_run(arch, "train_4k", policy=MESH_POLICY,
                               cfg=cfg, mesh=mesh.make_host_mesh(model=1),
                               batch_size=B, seq_len=S)
     predict_s = time.perf_counter() - t0
@@ -2605,7 +2632,7 @@ def mesh_step_phase(torch, rt, device: str = "cuda",
     step_bytes = (peak - before + args_bytes) if device == "cuda" else None
     predicted = pred["memory"]["argument_size_in_bytes"] + \
         pred["memory"]["temp_size_in_bytes"]
-    row = {"path": "mesh_train_step", "arch": MESH_ARCH,
+    row = {"path": "mesh_train_step", "arch": arch,
            "layers": cfg.num_layers, "d_model": cfg.d_model,
            "batch": [B, S], "policy": MESH_POLICY, "mesh": "1x1",
            "backend": "nccl" if device == "cuda" else "gloo",
@@ -2625,8 +2652,8 @@ def mesh_step_phase(torch, rt, device: str = "cuda",
     emit(row)
     if not bitwise and max(errs.values()) > MESH_TOL:
         fail_later(f"mesh train step against the plain step: {errs}")
-    if any("attention.py" in r for r in row["replicated"]):
-        fail_later(f"mesh train step ran attention replicated: "
+    if any(_own_layout(r) for r in row["replicated"]):
+        fail_later(f"mesh train step of {arch} ran replicated: "
                    f"{row['replicated']}")
     if not all(math.isfinite(v) for pair in scalars.values() for v in pair):
         fail_later(f"mesh train step not finite: {scalars}")
@@ -4229,7 +4256,9 @@ def main(argv=None) -> None:
     if run("mesh"):
         t0 = time.perf_counter()
         mesh_dry_run_phase(torch, rt)
+        mesh_dry_run_phase(torch, rt, arch=MOE_ARCH, runs=MOE_DRY_RUNS)
         mesh_step_phase(torch, rt)
+        mesh_step_phase(torch, rt, arch=MOE_ARCH)
         emit({"path": "launch_tooling", "phase_s": time.perf_counter() - t0,
               "card": smi})
     # the transformer and moe families, the zoo and the workload presets

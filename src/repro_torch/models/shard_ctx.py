@@ -8,14 +8,15 @@ installed ``shard`` returns its argument itself, so a model without a
 mesh runs exactly as before.
 
 The layouts of a layer's tensor-parallel blocks: the attention heads'
-(``split_heads``, ``reshape``, ``heads_local``) and the blocks' ends
-(``reduced_grad`` at a block's input, ``residual`` at its output).  A
-plain tensor takes the plain ``reshape``, call or sum.  A DTensor takes a
-layout chosen here, not DTensor's view strategy or its cost model, whose
-answers differ between torch versions (one refuses to split a dim sharded
-into half heads, another lays the projection out as a partial sum; a
-partial sum that reaches a product makes either gather the weight and run
-the product whole on every model shard):
+(``split_heads``, ``reshape``, ``heads_local``), the MoE block's experts
+(``experts_local``) and the blocks' ends (``reduced_grad`` at a block's
+input, ``residual`` at its output).  A plain tensor takes the plain
+``reshape``, call or sum.  A DTensor takes a layout chosen here, not
+DTensor's view strategy or its cost model, whose answers differ between
+torch versions (one refuses to split a dim sharded into half heads,
+another lays the projection out as a partial sum; a partial sum that
+reaches a product makes either gather the weight and run the product
+whole on every model shard):
 
   * a split of the projection into heads shards the head dim wherever the
     projection's last dim is sharded or a partial sum, if the heads divide
@@ -228,6 +229,94 @@ def heads_local(fn: Callable, q, k, v, *, query_blocks: bool = False):
     out = fn(*local, q_offset=block(rows) * (S // m)) if rows \
         else fn(*local)
     return _from_local(out, mesh, q_pl, (B, S, H, out.shape[3]))
+
+
+# ---------------------------------------------------------- expert layout
+def experts_local(fn: Callable, x, router, experts: tuple, *, group: int):
+    """``fn(x, router, *experts, e0)`` for x (B, S, d), the router (d, E)
+    and the expert stacks (E, ...) -> (y (B, S, d), per-group terms, each
+    (B·S / group, ...)).  ``fn`` routes the tokens in groups of ``group``
+    and runs the experts e0 .. e0 + len(experts[0]) - 1 it is given.
+    Plain tensors: ``fn(x, router, *experts, 0)``.  DTensors: ``fn`` runs
+    on local shards, each mesh dim holding
+
+      * the experts' shards, where the stacks are split by expert (the
+        reference's ``_MOE_RULES``: over ``model``).  x and the router
+        are replicated there: every shard routes all tokens of its batch
+        shard, so the capacity drop is the one of the whole expert set,
+        and builds the dispatch and combine tensors of its own experts;
+        y and the gradients of x and the router come back as partial
+        sums, the aux terms (the same on every shard) replicated, their
+        gradient taken on the first shard only;
+      * a batch shard of whole groups where the tokens of a shard divide
+        into groups (x's own batch split first, then the mesh dims the
+        experts do not split, if the batch divides over them); the
+        stacks' gradients are partial sums there;
+      * else a replica.
+
+    No operation of the block is left to DTensor's strategies, whose
+    layouts differ between torch versions (one runs the combine whole on
+    every model shard, another refuses its view)."""
+    if not _is_dtensor(x):
+        return fn(x, router, *experts, 0)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = x.device_mesh
+    B, S, d = x.shape
+    E = experts[0].shape[0]
+    ex = [i for i, p in enumerate(experts[0].placements)
+          if _shard_dim(p) == 0 and mesh.size(i) > 1]
+    if E % math.prod(mesh.size(i) for i in ex):
+        ex = []
+
+    def fits(dims):
+        n = math.prod(mesh.size(i) for i in dims)
+        return B % n == 0 and (B // n) * S % group == 0
+
+    batch = [i for i, p in enumerate(x.placements)
+             if _shard_dim(p) == 0 and i not in ex]
+    if not fits(batch):
+        batch = []
+    rest = [i for i in range(mesh.ndim)
+            if i not in ex and i not in batch and mesh.size(i) > 1]
+    if rest and fits(batch + rest):
+        batch = sorted(batch + rest)
+
+    def pl(on_batch, on_ex):
+        return tuple(on_batch if i in batch else on_ex if i in ex
+                     else Replicate() for i in range(mesh.ndim))
+
+    x_l = _placed(x, pl(Shard(0), Replicate())).to_local(
+        grad_placements=pl(Shard(0), Partial()))
+    r_l = _placed(router, pl(Replicate(), Replicate())).to_local(
+        grad_placements=pl(Partial(), Partial()))
+    w_l = [_placed(w, pl(Replicate(), Shard(0))).to_local(
+        grad_placements=pl(Partial(), Shard(0))) for w in experts]
+    coord = mesh.get_coordinate()
+    e0 = 0
+    for i in ex:
+        e0 = e0 * mesh.size(i) + coord[i]
+    e0 *= w_l[0].shape[0]
+    y, terms = fn(x_l, r_l, *w_l, e0)
+    first = all(coord[i] == 0 for i in ex)
+    rows = pl(Shard(0), Replicate())
+    G = B * S // group
+    return (_from_local(y, mesh, pl(Shard(0), Partial()), (B, S, d)),
+            tuple(_from_local(t if first else _NoGrad.apply(t), mesh, rows,
+                              (G,) + tuple(t.shape[1:]))
+                  for t in terms))
+
+
+class _NoGrad(torch.autograd.Function):
+    """``x``, with no gradient flowing back (a zero one): the aux terms
+    every expert shard computes alike send theirs back from one."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.zeros_like(g)
 
 
 def _from_local(local, mesh, placements, shape):

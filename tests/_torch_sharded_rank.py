@@ -1,5 +1,6 @@
 """One rank of ``test_torch_sharded_step.py``'s 2×2 gloo world: the
-port's train step on DTensor parameters against its unsharded step, and
+port's train step on DTensor parameters against its unsharded step (a
+case may override config fields), and
 the local shards of a tensor of distinct values under four specs; and of
 ``test_torch_head_split.py``'s worlds (``main_heads``: a mesh of the
 model-axis size given, configs with their head counts overridden).  Rank
@@ -96,8 +97,9 @@ def main(rank: int, world: int, init: str, cases, out_dir: str) -> None:
         res = {"layout": [distribute_tensor(x, mesh, to_placements(s, mesh),
                                             src_data_rank=None)
                           .to_local() for s in LAYOUT_SPECS]}
-        for arch, policy in cases:
-            res[(arch, policy)] = run_case(mesh, arch, policy)
+        # (arch, policy) or (arch, policy, name, config overrides)
+        for case in cases:
+            res[case[:3]] = run_case(mesh, *case[:2], *case[3:])
         torch.save(res, pathlib.Path(out_dir) / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()

@@ -25,9 +25,32 @@ import torch
 
 pytestmark = pytest.mark.tier1
 
+# (arch, policy) or (arch, policy, name, config overrides); the reduced
+# moe configs have 4 experts (top-2, or top-1 with a shared expert) in
+# groups of 64 tokens: 2 experts a model shard, a row of 64 tokens whole
+# groups
 CASES = [("qwen3_0p6b", "fsdp_tp"), ("qwen3_0p6b", "tp"),
          ("granite_moe_1b_a400m", "fsdp_tp"),
-         ("qwen3_0p6b", "fsdp_tp+act+attnb+seq")]
+         ("qwen3_0p6b", "fsdp_tp+act+attnb+seq"),
+         ("granite_moe_1b_a400m", "fsdp_tp+act"),
+         ("llama4_scout_17b_a16e", "fsdp_tp"),
+         # capacity 16 slots an expert against 32 sent on average
+         ("granite_moe_1b_a400m", "fsdp_tp", "drops",
+          {"capacity_factor": 0.5}),
+         # 3 experts do not divide the model axis: replicated there, so
+         # each of the 4 ranks takes a row of the batch
+         ("granite_moe_1b_a400m", "fsdp_tp", "experts_3",
+          {"num_experts": 3}),
+         # ... and with 2 rows, a row a data shard, the experts whole on
+         # both model shards
+         ("granite_moe_1b_a400m", "fsdp_tp+act", "experts_3_batch_2",
+          {"num_experts": 3, "batch": 2}),
+         # one group of all 256 tokens would straddle the data shards:
+         # the batch replicated, the experts split
+         ("granite_moe_1b_a400m", "fsdp_tp+act", "one_group",
+          {"moe_group_size": 256}),
+         ("granite_moe_1b_a400m", "fsdp_tp+act+seq")]
+MOE = [c for c in CASES if "moe" in c[0] or "scout" in c[0]]
 RTOL = 1e-5
 
 
@@ -66,8 +89,13 @@ def _leaves(tree, pre=""):
             yield pre + k, v
 
 
-@pytest.mark.parametrize("case", CASES, ids=["+".join(c) for c in CASES])
+def _id(case):
+    return "+".join(case[:3])
+
+
+@pytest.mark.parametrize("case", CASES, ids=[_id(c) for c in CASES])
 def test_sharded_step_equals_unsharded(ranks, case):
+    case = case[:3]
     got, ref = ranks[0][case], ranks[0][case]["ref"]
     for state in ("zero", "warm"):
         for k in ("loss", "grad_norm"):
@@ -106,6 +134,14 @@ def test_updated_leaves_keep_their_placements(ranks):
         assert n["layout"] == "Replicate" and n["reason"], n
         assert n["site"].startswith(("repro_torch/models/", "backward:")), n
         assert "attention.py" not in n["site"], n
+
+
+@pytest.mark.parametrize("case", MOE, ids=[_id(c) for c in MOE])
+def test_moe_steps_run_no_op_replicated(ranks, case):
+    """The MoE block's layout is the port's (``shard_ctx.experts_local``):
+    no operation of ``moe.py`` runs replicated by the fallback."""
+    notes = ranks[0][case[:3]]["notes"]
+    assert [n for n in notes if "moe.py" in n["site"]] == []
 
 
 def test_local_shards_are_jax_row_major_blocks(ranks):
