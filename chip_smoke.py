@@ -201,9 +201,13 @@ after 3h's group is gone, its checks failing the run at its end:
     bottleneck, ``trace_s``; the train step's top 5 collective sites; the
     torch version, since DTensor's layouts change with it); then
     granite-moe-1b-a400m's ``train_4k`` under ``fsdp_tp`` (the experts'
-    layout), whose count must be the CPU's (``CPU_FLOPS``) within 1 %; no
-    operation of ``attention.py`` or ``moe.py`` may run replicated, and a
-    train step's count must stay under 3x the model's 6·N·D share.
+    layout), qwen2-vl-2b's ``prefill_32k`` (its 12 heads split over the
+    queries: the merge's layout) and musicgen-medium's ``train_4k`` (an
+    embeddings input), with the phase's added seconds; each count that
+    ``CPU_FLOPS`` holds (qwen3-0.6b's train step too) must be the CPU's
+    within 1 %; no operation of ``attention.py`` or ``moe.py``, of the
+    embedding's lookup or of its backward may run replicated, and a train
+    step's count must stay under 3x the model's 6·N·D share.
     (b) one train step of qwen3-0.6b at full width and all 28 layers, then
     one of granite-moe-1b-a400m at full width and all 24 layers, on the
     3i batch (8 × 1,024) with DTensor parameters on a (1, 1) CUDA mesh
@@ -2463,7 +2467,21 @@ MESH_TOL = 1e-6
 # ... --policy ...`` on torch 2.13.0+cpu), and one step on the (1, 1) mesh
 MOE_ARCH = "granite-moe-1b-a400m"
 MOE_DRY_RUNS = (("train_4k", "fsdp_tp"),)
-CPU_FLOPS = {(MOE_ARCH, "train_4k", "fsdp_tp"): 29695403884544.0}
+# the embedding's vocabulary-parallel lookup, the stream's layout, the
+# query-block merge and the scans' channels (``shard_ctx.embed_local``,
+# ``stream``, ``project``, ``channels_local``): the combinations the card
+# counted otherwise than the CPU before, held to the CPU's count as the
+# MoE line is; 3q (a) also runs the first two
+LAYOUT_DRY_RUNS = (("qwen2-vl-2b", "prefill_32k", "fsdp_tp"),
+                   ("musicgen-medium", "train_4k", "fsdp_tp"))
+CPU_FLOPS = {(MOE_ARCH, "train_4k", "fsdp_tp"): 29695403884544.0,
+             ("qwen3-0.6b", "train_4k", "fsdp_tp"): 34205119545344.0,
+             ("musicgen-medium", "train_4k", "fsdp_tp"): 75557064671232.0,
+             ("qwen2-vl-2b", "train_4k", "fsdp_tp"): 58974195941376.0,
+             ("qwen2-vl-2b", "prefill_32k", "fsdp_tp"): 33822925848576.0,
+             ("qwen2-vl-2b", "decode_32k", "fsdp_tp"): 4362338304.0,
+             ("qwen2-vl-2b", "long_500k", "fsdp_tp"): 281051136.0,
+             ("falcon-mamba-7b", "long_500k", "fsdp_tp"): 859570176.0}
 MOE_COUNT_TOL = 0.01
 
 
@@ -2519,7 +2537,8 @@ def mesh_dry_run_phase(torch, rt, reduced: bool = False,
         # the heads' and the experts' layouts are the port's: nothing of
         # attention or the MoE block runs replicated, and the full-width
         # step's count stays near 6·N·D, and at the CPU's where it is known
-        own = [r for r in row["replicated"] if _own_layout(r)]
+        own = [r for r in row["replicated"]
+               if _own_layout(r, _lookup_sites(rt["transformer"]))]
         if own:
             fail_later(f"dry run {arch} {shape} {policy} ran replicated: "
                        f"{own}")
@@ -2535,9 +2554,23 @@ def mesh_dry_run_phase(torch, rt, reduced: bool = False,
     return rows
 
 
-def _own_layout(site: str) -> bool:
-    """A replicated op at a site whose layout the port chooses."""
-    return "attention.py" in site or "moe.py" in site
+def _own_layout(site: str, lookup=()) -> bool:
+    """A replicated op at a site whose layout the port chooses: attention,
+    the MoE block, the embedding's lookup (``lookup``, its lines) and its
+    backward."""
+    return "attention.py" in site or "moe.py" in site \
+        or "IndexBackward0" in site or "EmbeddingBackward0" in site \
+        or any(site.endswith(s) for s in lookup)
+
+
+def _lookup_sites(T) -> tuple:
+    """The lines of the port's ``transformer.py`` that look a token up in
+    the embedding table, as a note names them."""
+    import inspect
+    lines, _ = inspect.getsourcelines(T)
+    return tuple(f"repro_torch/models/transformer.py:{i}"
+                 for i, line in enumerate(lines, 1)
+                 if 'params["embed"]' in line)
 
 
 def mesh_step_phase(torch, rt, device: str = "cuda",
@@ -2652,7 +2685,7 @@ def mesh_step_phase(torch, rt, device: str = "cuda",
     emit(row)
     if not bitwise and max(errs.values()) > MESH_TOL:
         fail_later(f"mesh train step against the plain step: {errs}")
-    if any(_own_layout(r) for r in row["replicated"]):
+    if any(_own_layout(r, _lookup_sites(T)) for r in row["replicated"]):
         fail_later(f"mesh train step of {arch} ran replicated: "
                    f"{row['replicated']}")
     if not all(math.isfinite(v) for pair in scalars.values() for v in pair):
@@ -4257,6 +4290,12 @@ def main(argv=None) -> None:
         t0 = time.perf_counter()
         mesh_dry_run_phase(torch, rt)
         mesh_dry_run_phase(torch, rt, arch=MOE_ARCH, runs=MOE_DRY_RUNS)
+        t1 = time.perf_counter()
+        for arch, shape, policy in LAYOUT_DRY_RUNS:
+            mesh_dry_run_phase(torch, rt, arch=arch, runs=((shape, policy),))
+        emit({"path": "layout_dry_runs", "runs": [list(r) for r in
+                                                  LAYOUT_DRY_RUNS],
+              "phase_s": time.perf_counter() - t1, "card": smi})
         mesh_step_phase(torch, rt)
         mesh_step_phase(torch, rt, arch=MOE_ARCH)
         emit({"path": "launch_tooling", "phase_s": time.perf_counter() - t0,

@@ -12,16 +12,16 @@ import torch
 from ..kernels import ops
 from .common import ModelConfig
 from .layers import apply_mrope, apply_rope, causal_mask_bias, rms_norm
-from .shard_ctx import heads_local, reshape, shard, split_heads
+from .shard_ctx import heads_local, project, reshape, shard, split_heads
 
 
 def qkv_project(cfg: ModelConfig, p, x, positions):
     """x: (B,S,d) -> q (B,S,H,hd), k,v (B,S,KV,hd): q and k RMS-normed
     over the head dim under qk-norm, then rotated (RoPE, or M-RoPE with
     (3, B, S) positions)."""
-    q = split_heads(x @ p["wq"], cfg.num_heads, cfg.head_dim)
-    k = split_heads(x @ p["wk"], cfg.num_kv_heads, cfg.head_dim)
-    v = split_heads(x @ p["wv"], cfg.num_kv_heads, cfg.head_dim)
+    q = split_heads(project(x, p["wq"]), cfg.num_heads, cfg.head_dim)
+    k = split_heads(project(x, p["wk"]), cfg.num_kv_heads, cfg.head_dim)
+    v = split_heads(project(x, p["wv"]), cfg.num_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -110,7 +110,7 @@ def attention_block(cfg: ModelConfig, p, x, positions, *, impl: str = "xla",
             query_blocks=True)
     B, S = x.shape[:2]
     out = shard(reshape(out, (B, S, cfg.q_dim)), "act_btd_full")
-    y = out @ p["wo"]
+    y = project(out, p["wo"])
     return (y, (k, v)) if return_kv else y
 
 
@@ -134,4 +134,4 @@ def decode_attention_block(cfg: ModelConfig, p, x, cache, position: int, *,
     cache["v"][:, slot:slot + 1].copy_(v)
     out = decode_attention(cfg, q, cache["k"], cache["v"],
                            min(position + 1, S))
-    return reshape(out, (B, 1, cfg.q_dim)) @ p["wo"], cache
+    return project(reshape(out, (B, 1, cfg.q_dim)), p["wo"]), cache

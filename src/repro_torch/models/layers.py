@@ -5,6 +5,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .shard_ctx import project
+
 
 def rms_norm(x, scale, eps: float = 1e-6):
     """RMS norm in float32 with a (1 + scale) gain, cast back to x's dtype."""
@@ -15,14 +17,15 @@ def rms_norm(x, scale, eps: float = 1e-6):
 
 
 def swiglu(x, w_gate, w_up, w_down):
-    h = F.silu(x @ w_gate) * (x @ w_up)
-    return h @ w_down
+    h = F.silu(project(x, w_gate)) * project(x, w_up)
+    return project(h, w_down)
 
 
 def dense_init(gen: torch.Generator, shape, in_axis: int = 0,
-               dtype=torch.bfloat16, device="cpu"):
-    """fan_in^-½-scaled normal, drawn in float32 from ``gen`` (on
-    ``device``), then cast."""
+               dtype=torch.bfloat16, *, device):
+    """fan_in^-½-scaled normal, drawn in float32 from ``gen`` on
+    ``device`` (no default: nothing lands on the CPU unless asked), then
+    cast."""
     std = shape[in_axis] ** -0.5
     out = torch.randn(shape, generator=gen, dtype=torch.float32,
                       device=device)

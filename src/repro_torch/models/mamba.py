@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from ..kernels import ops
 from .common import ModelConfig
+from .shard_ctx import channels_local
 
 
 def _causal_conv(x, conv_w, conv_b, state=None):
@@ -50,13 +51,14 @@ def selective_scan(cfg: ModelConfig, p, u, delta, B_ssm, C_ssm, h0=None):
     """Returns (y (B,S,di), h_final (B,di,N) float32), from ``h0`` or a
     zero state.  A = -exp(A_log)."""
     A = -torch.exp(p["A_log"].float())                      # (di, N)
-    Bsz, S, di = u.shape
+    Bsz, _, di = u.shape
     h = h0 if h0 is not None else torch.zeros(
         (Bsz, di, cfg.ssm_state), dtype=torch.float32, device=u.device)
     ys = []
-    for t in range(S):
-        u_t, d_t = u[:, t], delta[:, t]
-        b_t, c_t = B_ssm[:, t], C_ssm[:, t]
+    # one unbind a tensor, not a select a step: a select's backward fills
+    # a zero tensor of the whole sequence every step
+    for u_t, d_t, b_t, c_t in zip(u.unbind(1), delta.unbind(1),
+                                  B_ssm.unbind(1), C_ssm.unbind(1)):
         dA = torch.exp(d_t[..., None].float() * A)          # (B,di,N)
         dBu = (d_t * u_t)[..., None].float() * b_t[:, None, :].float()
         h = dA * h + dBu
@@ -64,6 +66,17 @@ def selective_scan(cfg: ModelConfig, p, u, delta, B_ssm, C_ssm, h0=None):
     y = (torch.stack(ys, dim=1).float()
          + u.float() * p["D"]).to(u.dtype)                  # skip connection
     return y, h
+
+
+def _scan(cfg: ModelConfig, kernel: bool):
+    """The scan as ``shard_ctx.channels_local`` calls it: the kernel
+    (no final state), or the plain recurrence from ``h0``."""
+    def run(u, delta, B_ssm, C_ssm, A_log, D, h0):
+        if kernel:
+            return ops.ssm_scan(u, delta, B_ssm, C_ssm, A_log, D), None
+        return selective_scan(cfg, {"A_log": A_log, "D": D}, u, delta,
+                              B_ssm, C_ssm, h0)
+    return run
 
 
 def mamba_block(cfg: ModelConfig, p, x, *, impl: str = "xla",
@@ -76,11 +89,9 @@ def mamba_block(cfg: ModelConfig, p, x, *, impl: str = "xla",
     z = x @ p["in_proj_z"]                                  # (B,S,di)
     u = F.silu(_causal_conv(u_raw, p["conv_w"], p["conv_b"]))
     delta, B_ssm, C_ssm = _ssm_inputs(cfg, p, u)
-    if impl == "pallas" and not return_state:
-        y = ops.ssm_scan(u, delta, B_ssm, C_ssm, p["A_log"], p["D"])
-        h = None
-    else:
-        y, h = selective_scan(cfg, p, u, delta, B_ssm, C_ssm)
+    kernel = impl == "pallas" and not return_state
+    y, h = channels_local(_scan(cfg, kernel), (u, delta), (B_ssm, C_ssm),
+                          (p["A_log"], p["D"]))
     out = (y * F.silu(z)) @ p["out_proj"]
     if return_state:
         W = p["conv_w"].shape[1]
@@ -96,6 +107,7 @@ def mamba_decode_step(cfg: ModelConfig, p, x, state):
     u, conv_state = _causal_conv(u, p["conv_w"], p["conv_b"], state["conv"])
     u = F.silu(u)
     delta, B_ssm, C_ssm = _ssm_inputs(cfg, p, u)
-    y, h = selective_scan(cfg, p, u, delta, B_ssm, C_ssm, h0=state["h"])
+    y, h = channels_local(_scan(cfg, False), (u, delta), (B_ssm, C_ssm),
+                          (p["A_log"], p["D"]), state["h"])
     y = y * F.silu(z)
     return y @ p["out_proj"], {"conv": conv_state, "h": h}

@@ -27,7 +27,7 @@ _C = 8.0
 
 def rg_lru(p, x, h0=None, *, impl: str = "xla"):
     """x: (B,S,W) -> (y, h_final).  Gates are per-channel diagonal."""
-    B, S, W = x.shape
+    B, _, W = x.shape
     r = torch.sigmoid(x @ p["w_a"])                      # (B,S,W)
     i = torch.sigmoid(x @ p["w_x"])
     log_a = -_C * F.softplus(p["lambda_p"].float()) * r.float()
@@ -43,8 +43,10 @@ def rg_lru(p, x, h0=None, *, impl: str = "xla"):
     h = h0 if h0 is not None else torch.zeros((B, W), dtype=torch.float32,
                                               device=x.device)
     ys = []
-    for t in range(S):
-        h = a[:, t] * h + gated[:, t]
+    # one unbind a tensor, not a select a step: a select's backward fills
+    # a zero tensor of the whole sequence every step
+    for a_t, g_t in zip(a.unbind(1), gated.unbind(1)):
+        h = a_t * h + g_t
         ys.append(h.to(x.dtype))
     return torch.stack(ys, dim=1), h
 

@@ -7,10 +7,12 @@ where the reference calls ``with_sharding_constraint``).  With no sharder
 installed ``shard`` returns its argument itself, so a model without a
 mesh runs exactly as before.
 
-The layouts of a layer's tensor-parallel blocks: the attention heads'
-(``split_heads``, ``reshape``, ``heads_local``), the MoE block's experts
-(``experts_local``) and the blocks' ends (``reduced_grad`` at a block's
-input, ``residual`` at its output).  A plain tensor takes the plain
+The layouts of the model under a mesh: the embedding's vocabulary
+(``embed_local``) and the residual stream's (``stream``); the attention
+heads' (``split_heads``, ``reshape``, ``heads_local``), the products'
+(``project``), the MoE block's experts (``experts_local``) and the mamba
+scan's channels (``channels_local``); and the blocks' ends
+(``reduced_grad`` at a block's input, ``residual`` at its output).  A plain tensor takes the plain
 ``reshape``, call or sum.  A DTensor takes a layout chosen here, not
 DTensor's view strategy or its cost model, whose answers differ between
 torch versions (one refuses to split a dim sharded into half heads,
@@ -91,16 +93,46 @@ class _ReducedGrad(torch.autograd.Function):
 
 
 def residual(x, y):
-    """``x + y``; a DTensor block output ``y``'s partial sums (a
-    row-parallel product's) are first reduced into the residual stream
-    ``x``'s layout (Megatron's ``g``), so the next block's input is never a
-    partial sum (DTensor would gather the next column-parallel weight and
-    run it whole on every model shard)."""
-    if _is_dtensor(x) and _is_dtensor(y) \
-            and any(p.is_partial() for p in y.placements):
-        y = _placed(y, tuple(px if py.is_partial() else py
-                             for px, py in zip(x.placements, y.placements)))
+    """``x + y``; a DTensor block output ``y`` is first laid out as the
+    residual stream ``x`` (Megatron's ``g``): its partial sums (a
+    row-parallel product's) reduced, its shards (a product run on the
+    rows of its input, ``project``) gathered or split, so the stream
+    keeps the layout it entered the model with and the next block's input
+    is never a partial sum (DTensor would gather the next column-parallel
+    weight and run it whole on every model shard)."""
+    if _is_dtensor(x) and _is_dtensor(y):
+        y = _placed(y, tuple(x.placements))
     return x + y
+
+
+def stream(x, *, split: bool = True):
+    """The residual stream's layout at the model's input (the embeddings):
+    with ``split``, every mesh dim that holds a partial sum
+    (``embed_local``'s, reduce-scattered) or a replica (split locally)
+    takes a batch shard where the batch divides over it (a training
+    batch), else a sequence shard where the sequence divides (prefill), so
+    the layers' products gather their weights (``project``), which are
+    smaller than the activations a tensor-parallel layout moves there; a
+    partial sum left is reduced (replicated).  The recurrent blocks' scans
+    and the decode step's cache keep their channels or sequence over
+    ``model``, so their callers pass ``split=False``.  A plain tensor is
+    returned as it is."""
+    if not _is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = x.device_mesh
+    n = [math.prod(mesh.size(i) for i, p in enumerate(x.placements)
+                   if _shard_dim(p) == d) for d in (0, 1)]
+    pl = []
+    for i, p in enumerate(x.placements):
+        for d in (0, 1):
+            if split and (p.is_partial() or p.is_replicate()) \
+                    and mesh.size(i) > 1 \
+                    and x.shape[d] % (n[d] * mesh.size(i)) == 0:
+                n[d] *= mesh.size(i)
+                p = Shard(d)
+        pl.append(Replicate() if p.is_partial() else p)
+    return _placed(x, tuple(pl))
 
 
 def split_heads(x, heads: int, head_dim: int):
@@ -229,6 +261,153 @@ def heads_local(fn: Callable, q, k, v, *, query_blocks: bool = False):
     out = fn(*local, q_offset=block(rows) * (S // m)) if rows \
         else fn(*local)
     return _from_local(out, mesh, q_pl, (B, S, H, out.shape[3]))
+
+
+# ------------------------------------------------------ vocabulary layout
+def embed_local(table, tokens):
+    """``table[tokens]`` for the embedding table (Vp, d) and integer
+    tokens (...) -> (..., d).  Plain tensors: the plain lookup.  A
+    DTensor table is looked up in a vocabulary-parallel layout (the
+    reference's rule puts Vp over ``model``): its d is gathered (as every
+    weight under FSDP), the tokens are replicated over the vocabulary's
+    mesh dims, and each vocabulary shard looks up the ids that fall in
+    its rows [v0, v0 + Vp/n), zeroing the rest; the result is a partial
+    sum over those dims (exactly one shard holds each row, and adding
+    zeros is exact), to be reduced into the residual stream's layout
+    (``stream``).  The table's gradient is a local ``index_put`` into
+    each shard's own rows, a partial sum over the tokens' batch shards.
+    A mesh dim that does not divide Vp holds a replica of the table."""
+    if not _is_dtensor(table):
+        return table[tokens.long()]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = table.device_mesh
+    Vp, d = table.shape
+    vocab = [i for i, p in enumerate(table.placements)
+             if _shard_dim(p) == 0 and mesh.size(i) > 1]
+    n = math.prod(mesh.size(i) for i in vocab)
+    if Vp % n:
+        vocab, n = [], 1
+    t_pl = tuple(Replicate() if i in vocab else p
+                 for i, p in enumerate(tokens.placements))
+    t_l = _placed(tokens, t_pl).to_local()
+    w_pl = tuple(Shard(0) if i in vocab else Replicate()
+                 for i in range(mesh.ndim))
+    w_l = _placed(table, w_pl).to_local(grad_placements=tuple(
+        Shard(0) if i in vocab else
+        Partial() if _shard_dim(t_pl[i]) is not None else Replicate()
+        for i in range(mesh.ndim)))
+    coord = mesh.get_coordinate()
+    v0 = 0
+    for i in vocab:
+        v0 = v0 * mesh.size(i) + coord[i]
+    rows = vocab_rows(w_l, t_l, v0 * w_l.shape[0]) if vocab \
+        else w_l[t_l.long()]
+    out_pl = tuple(Partial() if i in vocab else p for i, p in enumerate(t_pl))
+    return _from_local(rows, mesh, out_pl, tuple(tokens.shape) + (d,))
+
+
+def vocab_rows(rows, tokens, v0: int):
+    """One vocabulary shard's part of a lookup: ``rows`` holds the table's
+    rows [v0, v0 + len(rows)); a token there gets its row, any other a
+    zero row."""
+    ids = tokens.long() - v0
+    hit = (ids >= 0) & (ids < rows.shape[0])
+    zero = torch.zeros((), dtype=rows.dtype, device=rows.device)
+    return torch.where(hit[..., None], rows[ids.clamp(0, rows.shape[0] - 1)],
+                       zero)
+
+
+# ---------------------------------------------------------- row products
+def project(x, w):
+    """``x @ w`` for an activation x (..., K) and a weight w (K, N).
+    Plain tensors: the plain product.  DTensors: the product of the local
+    shards, each mesh dim laid out by x's placement there:
+
+      * x split on a row dim (a batch or sequence shard): w gathered
+        there (a weight is small beside the rows), the output split as x;
+      * x split on K, or replicated while w's rows are split: a partial
+        sum from w's row shard (x's replica split locally);
+      * x replicated and w's columns split: the output's columns split;
+      * else (both replicated) a replica; x's partial sums are reduced
+        first.
+
+    DTensor's own matmul flattens x's leading dims with a view, which
+    some torch versions refuse where a dim after the first is sharded
+    (attention's output under query blocks, split over the sequence)."""
+    if not _is_dtensor(x):
+        return x @ w
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = x.device_mesh
+    last = x.ndim - 1
+    x_pl, xg_pl, w_pl, wg_pl, y_pl = [], [], [], [], []
+    for i, (px, pw) in enumerate(zip(x.placements, w.placements)):
+        k = _shard_dim(px)
+        if px.is_partial():
+            px, k = Replicate(), None
+        if k is not None and k < last:              # rows
+            row = (px, px, Replicate(), Partial(), px)
+        elif k == last or _shard_dim(pw) == 0:      # the contraction
+            row = (Shard(last), Shard(last), Shard(0), Shard(0), Partial())
+        elif _shard_dim(pw) == 1:                   # the columns
+            row = (px, Partial(), pw, pw, Shard(last))
+        else:
+            row = (px,) * 2 + (Replicate(),) * 3
+        for acc, p in zip((x_pl, xg_pl, w_pl, wg_pl, y_pl), row):
+            acc.append(p)
+    x_l = _placed(x, tuple(x_pl)).to_local(grad_placements=tuple(xg_pl))
+    w_l = _placed(w, tuple(w_pl)).to_local(grad_placements=tuple(wg_pl))
+    return _from_local(x_l @ w_l, mesh, tuple(y_pl),
+                       tuple(x.shape[:-1]) + (w.shape[1],))
+
+
+# --------------------------------------------------------- channel layout
+def channels_local(fn: Callable, chan: tuple, shared: tuple = (),
+                   params: tuple = (), h0=None):
+    """``fn(*chan, *shared, *params, h0)`` -> (y (B, S, C), h (B, C, ...)
+    or None) for a recurrence whose C channels are independent: ``chan``
+    (B, S, C) per channel, ``shared`` (B, S, N) read by every channel,
+    ``params`` (C, ...) per channel, ``h0`` (B, C, ...) or None.  Plain
+    tensors: the plain call.  DTensors: ``fn`` runs on local shards, each
+    mesh dim holding a shard of the channels where ``chan[0]``'s are split
+    there (the rules put the mamba block's d_inner over ``model``), a
+    batch shard where its batch is split, else a replica; ``shared`` is
+    replicated over the channels' dims (its gradient a partial sum there)
+    and the parameters' gradients are partial sums over the batch shards.
+    No step of the scan is left to DTensor, whose layouts differ between
+    torch versions (one gathers the state over the channels every time
+    step)."""
+    if not _is_dtensor(chan[0]):
+        return fn(*chan, *shared, *params, h0)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = chan[0].device_mesh
+    B, S, C = chan[0].shape
+
+    def split(dim):
+        dims = [i for i, p in enumerate(chan[0].placements)
+                if _shard_dim(p) == dim and mesh.size(i) > 1]
+        n = math.prod(mesh.size(i) for i in dims)
+        return dims if chan[0].shape[dim] % n == 0 else []
+
+    ch, batch = split(2), split(0)
+
+    def pl(on_batch, on_ch):
+        return tuple(on_batch if i in batch else on_ch if i in ch
+                     else Replicate() for i in range(mesh.ndim))
+
+    def local(t, placed, grad):
+        return _placed(t, placed).to_local(grad_placements=grad)
+
+    rows = pl(Shard(0), Shard(2))
+    args = [local(t, rows, rows) for t in chan]
+    args += [local(t, pl(Shard(0), Replicate()), pl(Shard(0), Partial()))
+             for t in shared]
+    args += [local(t, pl(Replicate(), Shard(0)), pl(Partial(), Shard(0)))
+             for t in params]
+    state = pl(Shard(0), Shard(1))
+    y, h = fn(*args, None if h0 is None else local(h0, state, state))
+    return (_from_local(y, mesh, rows, (B, S, C)),
+            None if h is None else
+            _from_local(h, mesh, state, (B, C) + tuple(h.shape[2:])))
 
 
 # ---------------------------------------------------------- expert layout

@@ -46,7 +46,7 @@ from .layers import dense_init, rms_norm, swiglu
 from .mamba import mamba_block, mamba_decode_step
 from .moe import moe_block
 from .rglru import recurrent_block
-from .shard_ctx import reduced_grad, residual, shard
+from .shard_ctx import embed_local, reduced_grad, residual, shard, stream
 
 
 def vocab_padded(cfg: ModelConfig) -> int:
@@ -61,7 +61,7 @@ def _init_attn(cfg: ModelConfig, gen: torch.Generator, n: int, device, *,
     d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
 
     def dense(shape, in_axis):
-        return dense_init(gen, shape, in_axis, cfg.dtype, device)
+        return dense_init(gen, shape, in_axis, cfg.dtype, device=device)
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=torch.float32, device=device)
@@ -93,7 +93,7 @@ def _init_moe(cfg: ModelConfig, gen: torch.Generator, n: int, device):
     d, f, E = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
 
     def dense(shape, in_axis, dtype=cfg.dtype):
-        return dense_init(gen, shape, in_axis, dtype, device)
+        return dense_init(gen, shape, in_axis, dtype, device=device)
 
     p = _init_attn(cfg, gen, n, device, extra_mlp=False)
     p.update({
@@ -117,7 +117,7 @@ def _init_rec(cfg: ModelConfig, gen: torch.Generator, n: int, device):
     d, w, W = cfg.d_model, cfg.lru_width, cfg.conv_width
 
     def dense(shape, in_axis):
-        return dense_init(gen, shape, in_axis, cfg.dtype, device)
+        return dense_init(gen, shape, in_axis, cfg.dtype, device=device)
 
     def norm():
         return torch.zeros((n, d), dtype=torch.float32, device=device)
@@ -145,7 +145,7 @@ def _init_ssm(cfg: ModelConfig, gen: torch.Generator, n: int, device):
                       cfg.conv_width)
 
     def dense(shape, in_axis):
-        return dense_init(gen, shape, in_axis, cfg.dtype, device)
+        return dense_init(gen, shape, in_axis, cfg.dtype, device=device)
 
     A = torch.arange(1, N + 1, dtype=torch.float32, device=device)
     return {
@@ -185,8 +185,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
     params: dict = {"final_norm": torch.zeros((d,), dtype=torch.float32,
                                               device=device)}
     if cfg.input_mode == "tokens":
-        params["embed"] = dense_init(gen, (Vp, d), 1, cfg.dtype, device)
-    params["lm_head"] = dense_init(gen, (d, Vp), 0, cfg.dtype, device)
+        params["embed"] = dense_init(gen, (Vp, d), 1, cfg.dtype, device=device)
+    params["lm_head"] = dense_init(gen, (d, Vp), 0, cfg.dtype, device=device)
     for t, n in sorted(stack_counts(cfg).items()):
         params[f"stack_{t}"] = _STACK_INIT[t](cfg, gen, n, device)
     return params
@@ -301,8 +301,7 @@ def embed_inputs(cfg: ModelConfig, params, batch):
     (``input_mode="embeddings"``), and their positions: (B,S), or the
     batch's (3,B,S) ``positions`` under M-RoPE."""
     if cfg.input_mode == "tokens":
-        tokens = batch["tokens"].long()
-        x = params["embed"][tokens]
+        x = embed_local(params["embed"], batch["tokens"])
     else:
         x = batch["embeds"].to(cfg.dtype)
     B, S = x.shape[:2]
@@ -310,6 +309,7 @@ def embed_inputs(cfg: ModelConfig, params, batch):
         positions = batch["positions"]
     else:
         positions = torch.arange(S, device=x.device).expand(B, S)
+    x = stream(x, split=cfg.family not in ("ssm", "hybrid"))
     return shard(x, "act_btd"), positions
 
 
@@ -398,22 +398,23 @@ def _layer_body_prefill(cfg: ModelConfig, t: str, p, x, positions, impl: str,
         window = cfg.local_window if t == "attn" else cfg.sliding_window
         y, (k, v) = attention_block(cfg, p, h, positions, impl=impl,
                                     window=window, return_kv=True)
-        x = x + y
+        x = residual(x, y)
         h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
         if t == "moe":
             y2, _ = moe_block(cfg, p, h2)
         else:
             y2 = swiglu(h2, p["w_gate"], p["w_up"], p["w_down"])
         win = _cache_window(cfg, t, cache_len or S)
-        return x + y2, _kv_cache_slice(k, v, S, win)
+        return residual(x, y2), _kv_cache_slice(k, v, S, win)
     if t == "ssm":
         y, st = mamba_block(cfg, p, h, impl=impl, return_state=True)
-        return x + y, st
+        return residual(x, y), st
     if t == "rec":
         y, st = recurrent_block(cfg, p, h, return_state=True)
-        x = x + y
+        x = residual(x, y)
         h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
-        return x + swiglu(h2, p["w_gate"], p["w_up"], p["w_down"]), st
+        return residual(x, swiglu(h2, p["w_gate"], p["w_up"],
+                                  p["w_down"])), st
     raise ValueError(t)
 
 
@@ -486,21 +487,22 @@ def _decode_layer(cfg: ModelConfig, t: str, p, x, cache_slice, position: int):
         y, new_kv = decode_attention_block(
             cfg, p, h, cache_slice, position,
             window=cfg.local_window if t == "attn" else cfg.sliding_window)
-        x = x + y
+        x = residual(x, y)
         h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
         if t == "moe":
             y2, _ = moe_block(cfg, p, h2)
         else:
             y2 = swiglu(h2, p["w_gate"], p["w_up"], p["w_down"])
-        return x + y2, new_kv
+        return residual(x, y2), new_kv
     if t == "ssm":
         y, new_state = mamba_decode_step(cfg, p, h, cache_slice)
-        return x + y, new_state
+        return residual(x, y), new_state
     if t == "rec":
         y, new_state = recurrent_block(cfg, p, h, state=cache_slice)
-        x = x + y
+        x = residual(x, y)
         h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
-        return x + swiglu(h2, p["w_gate"], p["w_up"], p["w_down"]), new_state
+        return residual(x, swiglu(h2, p["w_gate"], p["w_up"],
+                                  p["w_down"])), new_state
     raise ValueError(t)
 
 
@@ -515,7 +517,8 @@ def decode_step(cfg: ModelConfig, params, cache, batch):
     position = int(batch["position"])
     with torch.no_grad():
         if cfg.input_mode == "tokens":
-            x = params["embed"][batch["tokens"].long()]
+            x = stream(embed_local(params["embed"], batch["tokens"]),
+                       split=False)
         else:
             x = batch["embeds"].to(cfg.dtype)
         for t, i in _layer_order(cfg):

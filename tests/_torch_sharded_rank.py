@@ -3,7 +3,8 @@ port's train step on DTensor parameters against its unsharded step (a
 case may override config fields), and
 the local shards of a tensor of distinct values under four specs; and of
 ``test_torch_head_split.py``'s worlds (``main_heads``: a mesh of the
-model-axis size given, configs with their head counts overridden).  Rank
+model-axis size given, configs with their head counts overridden; a
+case with ``prefill`` in its overrides runs the prefill step).  Rank
 0 saves what the test reads.  Imports no JAX."""
 import datetime
 import pathlib
@@ -79,6 +80,49 @@ def run_case(mesh, arch: str, policy: str, overrides=None) -> dict:
     return out
 
 
+def run_prefill_case(mesh, arch: str, policy: str, overrides=None) -> dict:
+    """The prefill step on DTensor parameters (the serving layout of
+    ``policy``'s base) against the plain prefill: last-token logits and
+    the cache, whole.  ``overrides``: config fields, and ``batch``."""
+    from repro_torch import configs
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch import steps
+    from repro_torch.models import shard_ctx
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.api import tree_map
+
+    overrides = dict(overrides or {})
+    B = overrides.pop("batch", 4)
+    cfg = configs.reduced(configs.get(arch)).with_(dtype=torch.float32,
+                                                   **overrides)
+    params = T.init_params(cfg, 0, device="cpu")
+    base, *variants = policy.split("+")
+    sharded = SH.distribute_tree(
+        params, SH.param_specs_tree(cfg, params, mesh, base), mesh)
+    S = 64
+    gen = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                     generator=gen, dtype=torch.int32)}
+    dbatch = SH.distribute_tree(batch, SH.batch_partition(cfg, batch, mesh),
+                                mesh)
+    prefill = steps.make_prefill_step(cfg, cache_len=S)
+    notes = []
+    shard_ctx.set_sharder(SH.make_activation_sharder(mesh, set(variants))
+                          if variants else None)
+    try:
+        with steps.mesh_context(sharded, notes):
+            logits, cache = prefill(sharded, dbatch)
+    finally:
+        shard_ctx.set_sharder(None)
+    out = {"logits": logits.full_tensor(),
+           "cache": tree_map(lambda x: x.full_tensor(), cache),
+           "notes": notes}
+    if dist.get_rank() == 0:
+        ref_logits, ref_cache = prefill(params, batch)
+        out["ref"] = {"logits": ref_logits, "cache": ref_cache}
+    return out
+
+
 LAYOUT_SPECS = [(("data", "model"), None), ("data", "model"),
                 (None, ("data", "model")), ("model", "data")]
 
@@ -116,7 +160,11 @@ def main_heads(rank: int, world: int, init: str, model: int, cases,
     try:
         from repro_torch.launch.mesh import make_host_mesh
         mesh = make_host_mesh(model=model)
-        res = {name: run_case(mesh, arch, policy, overrides)
+        res = {name: (run_prefill_case if overrides.get("prefill")
+                      else run_case)(
+                          mesh, arch, policy,
+                          {k: v for k, v in overrides.items()
+                           if k != "prefill"})
                for name, arch, policy, overrides in cases}
         torch.save(res, pathlib.Path(out_dir) / f"rank{rank}.pt")
     finally:

@@ -30,6 +30,9 @@ import torch
 from repro_torch.launch import dryrun as tdry
 from repro_torch.models import shard_ctx
 
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
+from _torch_dispatch_sites import dtensor_ops, source_lines  # noqa: E402
+
 pytestmark = pytest.mark.tier1
 torch.set_num_threads(1)
 
@@ -99,6 +102,25 @@ GLOO_CASES = [
 ]
 
 
+# prefill under the serving layout, the heads dividing neither the model
+# axis nor (with the batch) the mesh: the residual stream is split over
+# the sequence, each shard attends a block of the queries, and the
+# output projection runs on those rows (``shard_ctx.project``)
+PREFILL_CASES = [
+    ("prefill_rows_6_on_4", 4, "qwen3_0p6b", "tp",
+     {"num_heads": 6, "num_kv_heads": 2, "batch": 2, "prefill": True}),
+    ("prefill_rows_3_on_2", 2, "qwen3_0p6b", "tp",
+     {"num_heads": 3, "num_kv_heads": 1, "batch": 2, "prefill": True}),
+    # the heads divide: a shard of heads, the stream a batch shard
+    ("prefill_heads_4_on_2", 2, "qwen3_0p6b", "tp",
+     {"num_heads": 4, "num_kv_heads": 2, "prefill": True}),
+    # the hybrid keeps its stream replicated over ``model`` (its scans
+    # split the LRU width there); its local attention takes query blocks
+    ("prefill_hybrid_rows", 4, "recurrentgemma_9b", "tp",
+     {"batch": 2, "prefill": True}),
+]
+
+
 @pytest.fixture(scope="module")
 def gloo_runs(tmp_path_factory):
     here = pathlib.Path(__file__).parent
@@ -110,9 +132,10 @@ def gloo_runs(tmp_path_factory):
         os.environ["PYTHONPATH"] = os.pathsep.join(p for p in (src, env) if p)
     ctx = mp.get_context("spawn")
     out = {}
-    for model in sorted({c[1] for c in GLOO_CASES}):
+    for model in sorted({c[1] for c in GLOO_CASES + PREFILL_CASES}):
         d = tmp_path_factory.mktemp(f"heads{model}")
-        cases = [(n, a, p, o) for n, m, a, p, o in GLOO_CASES if m == model]
+        cases = [(n, a, p, o) for n, m, a, p, o in GLOO_CASES + PREFILL_CASES
+                 if m == model]
         procs = [ctx.Process(target=R.main_heads,
                              args=(r, 4, f"file://{d / 'rendezvous'}",
                                    model, cases, str(d)))
@@ -154,6 +177,39 @@ def test_sharded_gqa_step_equals_unsharded(gloo_runs, name):
         assert torch.allclose(leaf, want[k], rtol=RTOL), \
             (k, (leaf - want[k]).abs().max().item())
     assert _attention_sites(got["notes"]) == []
+
+
+@pytest.mark.parametrize("name", [c[0] for c in PREFILL_CASES])
+def test_sharded_prefill_equals_unsharded(gloo_runs, name):
+    """The last token's logits and every cache tensor of the sharded
+    prefill equal the plain prefill's, each element to 1e-5 of the
+    tensor's largest magnitude (the shards' partial sums add in another
+    order); nothing of attention runs replicated."""
+    got = gloo_runs[name]
+    want = dict(_leaves(got["ref"]["cache"]), logits=got["ref"]["logits"])
+    leaves = dict(_leaves(got["cache"]), logits=got["logits"])
+    assert leaves.keys() == want.keys()
+    for k, leaf in leaves.items():
+        scale = want[k].abs().max().item()
+        assert leaf.shape == want[k].shape, k
+        assert (leaf - want[k]).abs().max().item() <= RTOL * scale, k
+    assert _attention_sites(got["notes"]) == []
+
+
+def test_no_dtensor_op_runs_at_the_query_block_merge():
+    """A reduced prefill on a 2×2 fake world whose 3 heads divide neither
+    the model axis nor, with a batch of 2, the mesh: attention's output is
+    split over the sequence.  DTensor's own matmul flattened it with a
+    view, which torch 2.11 refuses there ("Attempted to flatten multiple
+    dimensions, with dimension 1 being sharded"; it ran replicated over
+    ``model``); the merge and the output projection now dispatch nothing
+    on a DTensor, under any torch."""
+    from repro_torch.models import attention as TA
+    merge = source_lines(TA, 'p["wo"]') | source_lines(TA, "cfg.q_dim))")
+    ops = dtensor_ops("qwen3-0.6b", "prefill_32k", "tp", num_heads=3,
+                      num_kv_heads=1)
+    assert ops
+    assert [(op, site) for op, site in ops if site in merge] == []
 
 
 @pytest.mark.parametrize("src,dst,groups", [

@@ -49,7 +49,16 @@ CASES = [("qwen3_0p6b", "fsdp_tp"), ("qwen3_0p6b", "tp"),
          # the batch replicated, the experts split
          ("granite_moe_1b_a400m", "fsdp_tp+act", "one_group",
           {"moe_group_size": 256}),
-         ("granite_moe_1b_a400m", "fsdp_tp+act+seq")]
+         ("granite_moe_1b_a400m", "fsdp_tp+act+seq"),
+         # the embedding's vocabulary-parallel lookup reduced into the
+         # stream: a batch shard over ``model`` (a batch of 4), the +act
+         # pin (replicated there), the whole table under ZeRO-3, and a
+         # sequence shard (a batch of 2: a row a data shard)
+         ("qwen3_0p6b", "fsdp_tp+act"), ("qwen3_0p6b", "fsdp"),
+         ("qwen3_0p6b", "fsdp_tp", "batch_2", {"batch": 2}),
+         # the mamba scan's channels over ``model``
+         # (shard_ctx.channels_local); the hybrid's stream replicated there
+         ("falcon_mamba_7b", "fsdp_tp"), ("recurrentgemma_9b", "fsdp_tp")]
 MOE = [c for c in CASES if "moe" in c[0] or "scout" in c[0]]
 RTOL = 1e-5
 
@@ -142,6 +151,16 @@ def test_moe_steps_run_no_op_replicated(ranks, case):
     no operation of ``moe.py`` runs replicated by the fallback."""
     notes = ranks[0][case[:3]]["notes"]
     assert [n for n in notes if "moe.py" in n["site"]] == []
+
+
+@pytest.mark.parametrize("case", CASES, ids=[_id(c) for c in CASES])
+def test_no_step_runs_the_lookup_replicated(ranks, case):
+    """The embedding's lookup and its gradient run on local shards
+    (``shard_ctx.embed_local``): no note at the lookup or in its
+    backward."""
+    notes = ranks[0][case[:3]]["notes"]
+    assert [n for n in notes if "Index" in n["site"]
+            or "Embedding" in n["site"] or "index" in n["op"]] == []
 
 
 def test_local_shards_are_jax_row_major_blocks(ranks):
