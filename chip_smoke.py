@@ -202,12 +202,20 @@ after 3h's group is gone, its checks failing the run at its end:
     torch version, since DTensor's layouts change with it); then
     granite-moe-1b-a400m's ``train_4k`` under ``fsdp_tp`` (the experts'
     layout), qwen2-vl-2b's ``prefill_32k`` (its 12 heads split over the
-    queries: the merge's layout) and musicgen-medium's ``train_4k`` (an
-    embeddings input), with the phase's added seconds; each count that
-    ``CPU_FLOPS`` holds (qwen3-0.6b's train step too) must be the CPU's
-    within 1 %; no operation of ``attention.py`` or ``moe.py``, of the
-    embedding's lookup or of its backward may run replicated, and a train
-    step's count must stay under 3x the model's 6·N·D share.
+    queries: the merge's layout), musicgen-medium's ``train_4k`` (an
+    embeddings input), and the ``train_4k`` steps of internlm2-1.8b,
+    stablelm-12b and yi-9b (the loss's vocabulary-parallel layout) and of
+    recurrentgemma-9b (the Griffin block's), with the phase's added
+    seconds; each count that ``CPU_FLOPS`` holds (qwen3-0.6b's train step
+    too) and each roofline bound that ``CPU_BOUND`` holds must be the
+    CPU's within 1 %; no operation of attention, the MoE block, the
+    recurrent blocks, the embedding's lookup or the loss, nor of their
+    backward, may run replicated, and a train step's count must stay
+    under 3x the model's 6·N·D share.  (c) the dry run's extrapolation in
+    S held linear: recurrentgemma-9b's rec kind and falcon-mamba-7b's ssm
+    kind traced at S = 16, 32 and 64 at full width, the third trace's
+    FLOPs, bytes, wire bytes and collective counts within 1 % of the line
+    through the first two, one line each.
     (b) one train step of qwen3-0.6b at full width and all 28 layers, then
     one of granite-moe-1b-a400m at full width and all 24 layers, on the
     3i batch (8 × 1,024) with DTensor parameters on a (1, 1) CUDA mesh
@@ -2468,12 +2476,18 @@ MESH_TOL = 1e-6
 MOE_ARCH = "granite-moe-1b-a400m"
 MOE_DRY_RUNS = (("train_4k", "fsdp_tp"),)
 # the embedding's vocabulary-parallel lookup, the stream's layout, the
-# query-block merge and the scans' channels (``shard_ctx.embed_local``,
-# ``stream``, ``project``, ``channels_local``): the combinations the card
-# counted otherwise than the CPU before, held to the CPU's count as the
-# MoE line is; 3q (a) also runs the first two
+# query-block merge, the recurrent blocks' channels and the loss's
+# vocabulary (``shard_ctx.embed_local``, ``stream``, ``project``,
+# ``channels_local``, ``loss_local``): the combinations the card counted
+# otherwise than the CPU before, held to the CPU's count as the MoE line
+# is, and to the CPU's roofline bound where ``CPU_BOUND`` holds one (the
+# loss's and the Griffin block's layouts moved the train steps' bytes)
 LAYOUT_DRY_RUNS = (("qwen2-vl-2b", "prefill_32k", "fsdp_tp"),
-                   ("musicgen-medium", "train_4k", "fsdp_tp"))
+                   ("musicgen-medium", "train_4k", "fsdp_tp"),
+                   ("internlm2-1.8b", "train_4k", "fsdp_tp"),
+                   ("recurrentgemma-9b", "train_4k", "fsdp_tp"),
+                   ("stablelm-12b", "train_4k", "fsdp_tp"),
+                   ("yi-9b", "train_4k", "fsdp_tp"))
 CPU_FLOPS = {(MOE_ARCH, "train_4k", "fsdp_tp"): 29695403884544.0,
              ("qwen3-0.6b", "train_4k", "fsdp_tp"): 34205119545344.0,
              ("musicgen-medium", "train_4k", "fsdp_tp"): 75557064671232.0,
@@ -2481,8 +2495,23 @@ CPU_FLOPS = {(MOE_ARCH, "train_4k", "fsdp_tp"): 29695403884544.0,
              ("qwen2-vl-2b", "prefill_32k", "fsdp_tp"): 33822925848576.0,
              ("qwen2-vl-2b", "decode_32k", "fsdp_tp"): 4362338304.0,
              ("qwen2-vl-2b", "long_500k", "fsdp_tp"): 281051136.0,
-             ("falcon-mamba-7b", "long_500k", "fsdp_tp"): 859570176.0}
+             ("falcon-mamba-7b", "long_500k", "fsdp_tp"): 85917696.0,
+             ("recurrentgemma-9b", "train_4k", "fsdp_tp"): 305389354614784.0,
+             ("internlm2-1.8b", "train_4k", "fsdp_tp"): 65592740544512.0,
+             ("stablelm-12b", "train_4k", "fsdp_tp"): 412832256491520.0,
+             ("yi-9b", "train_4k", "fsdp_tp"): 315765995601920.0}
+# the roofline bound in s, max(compute, memory, collective), at the same
+# H100 peaks on both machines
+CPU_BOUND = {(MOE_ARCH, "train_4k", "fsdp_tp"): 0.4210291329074627,
+             ("internlm2-1.8b", "train_4k", "fsdp_tp"): 0.39810851635104477,
+             ("recurrentgemma-9b", "train_4k", "fsdp_tp"): 2.181618535164179,
+             ("stablelm-12b", "train_4k", "fsdp_tp"): 1.3288576121647762,
+             ("yi-9b", "train_4k", "fsdp_tp"): 1.4208571938531342}
 MOE_COUNT_TOL = 0.01
+# the dry run's extrapolation of the recurrent kinds in S, checked at a
+# third length at full width on the 16×16 fake world (``dryrun.linearity``)
+LINEARITY_RUNS = (("recurrentgemma-9b", "rec"), ("falcon-mamba-7b", "ssm"))
+LINEARITY_TOL = 0.01
 
 
 def _rel_err(a, b) -> float:
@@ -2528,6 +2557,11 @@ def mesh_dry_run_phase(torch, rt, reduced: bool = False,
         cpu = None if reduced else CPU_FLOPS.get((arch, shape, policy))
         if cpu:
             row["cpu_flops_per_device"] = cpu
+        bound = max(res["roofline"].values())
+        cpu_bound = None if reduced else CPU_BOUND.get((arch, shape, policy))
+        row["bound_s"] = bound
+        if cpu_bound:
+            row["cpu_bound_s"] = cpu_bound
         emit(row)
         rows.append(row)
         ok = all(math.isfinite(row[k]) and row[k] > 0 for k in
@@ -2538,7 +2572,7 @@ def mesh_dry_run_phase(torch, rt, reduced: bool = False,
         # attention or the MoE block runs replicated, and the full-width
         # step's count stays near 6·N·D, and at the CPU's where it is known
         own = [r for r in row["replicated"]
-               if _own_layout(r, _lookup_sites(rt["transformer"]))]
+               if _own_layout(r, _own_sites(rt["transformer"]))]
         if own:
             fail_later(f"dry run {arch} {shape} {policy} ran replicated: "
                        f"{own}")
@@ -2551,16 +2585,51 @@ def mesh_dry_run_phase(torch, rt, reduced: bool = False,
             fail_later(f"dry run {arch} {shape} {policy}: "
                        f"{row['flops_per_device']:.6e} FLOPs a device "
                        f"against the CPU's {cpu:.6e}")
+        if cpu_bound and abs(bound / cpu_bound - 1) > MOE_COUNT_TOL:
+            fail_later(f"dry run {arch} {shape} {policy}: bound "
+                       f"{bound:.6g} s against the CPU's {cpu_bound:.6g}")
     return rows
 
 
-def _own_layout(site: str, lookup=()) -> bool:
+def linearity_phase(torch, rt, reduced: bool = False) -> list:
+    """3q (c): each recurrent kind of ``LINEARITY_RUNS`` traced at S = 16,
+    32 and 64 (its train step on the 16×16 fake world at full width;
+    ``reduced``: the reduced config on a 2×2 world), the third trace's
+    FLOPs, bytes, wire bytes and collective counts against the line
+    through the first two (``dryrun.linearity``), one line each."""
+    dryrun, mesh = rt["dryrun"], rt["mesh"]
+    rows = []
+    for arch, kind in LINEARITY_RUNS:
+        t0 = time.perf_counter()
+        if reduced:
+            cfg = rt["configs"].reduced(rt["configs"].get(arch))
+            with mesh.fake_world(4):
+                res = dryrun.linearity(arch, kind, cfg=cfg,
+                                       mesh=mesh.make_host_mesh(model=2))
+        else:
+            res = dryrun.linearity(arch, kind)
+        worst = sorted(res["rel_err"].items(), key=lambda kv: -kv[1])[:3]
+        row = {"path": "dry_run_linearity", "arch": arch, "kind": kind,
+               "traced": res["traced"], "max_rel_err": res["max_rel_err"],
+               "worst": worst, "metrics": len(res["rel_err"]),
+               "torch": torch.__version__,
+               "phase_s": time.perf_counter() - t0, "card": rt["smi"]}
+        emit(row)
+        rows.append(row)
+        if not res["max_rel_err"] <= LINEARITY_TOL:
+            fail_later(f"dry run {arch} {kind}: not linear in S: {worst}")
+    return rows
+
+
+def _own_layout(site: str, own=()) -> bool:
     """A replicated op at a site whose layout the port chooses: attention,
-    the MoE block, the embedding's lookup (``lookup``, its lines) and its
-    backward."""
-    return "attention.py" in site or "moe.py" in site \
-        or "IndexBackward0" in site or "EmbeddingBackward0" in site \
-        or any(site.endswith(s) for s in lookup)
+    the MoE block, the recurrent blocks, the embedding's lookup and the
+    loss (``own``, their lines) and their backward."""
+    return any(f in site for f in ("attention.py", "moe.py", "mamba.py",
+                                   "rglru.py", "IndexBackward0",
+                                   "EmbeddingBackward0",
+                                   "LogsumexpBackward0", "GatherBackward0")) \
+        or any(site.endswith(s) for s in own)
 
 
 def _lookup_sites(T) -> tuple:
@@ -2571,6 +2640,20 @@ def _lookup_sites(T) -> tuple:
     return tuple(f"repro_torch/models/transformer.py:{i}"
                  for i, line in enumerate(lines, 1)
                  if 'params["embed"]' in line)
+
+
+def _loss_sites(T) -> tuple:
+    """The lines of the port's loss chunk (``transformer._chunk_loss``),
+    as a note names them."""
+    import inspect
+    lines, start = inspect.getsourcelines(T._chunk_loss)
+    return tuple(f"repro_torch/models/transformer.py:{start + i}"
+                 for i in range(len(lines)))
+
+
+def _own_sites(T) -> tuple:
+    """The lookup's lines and the loss's."""
+    return _lookup_sites(T) + _loss_sites(T)
 
 
 def mesh_step_phase(torch, rt, device: str = "cuda",
@@ -2685,7 +2768,7 @@ def mesh_step_phase(torch, rt, device: str = "cuda",
     emit(row)
     if not bitwise and max(errs.values()) > MESH_TOL:
         fail_later(f"mesh train step against the plain step: {errs}")
-    if any(_own_layout(r, _lookup_sites(T)) for r in row["replicated"]):
+    if any(_own_layout(r, _own_sites(T)) for r in row["replicated"]):
         fail_later(f"mesh train step of {arch} ran replicated: "
                    f"{row['replicated']}")
     if not all(math.isfinite(v) for pair in scalars.values() for v in pair):
@@ -4296,6 +4379,7 @@ def main(argv=None) -> None:
         emit({"path": "layout_dry_runs", "runs": [list(r) for r in
                                                   LAYOUT_DRY_RUNS],
               "phase_s": time.perf_counter() - t1, "card": smi})
+        linearity_phase(torch, rt)
         mesh_step_phase(torch, rt)
         mesh_step_phase(torch, rt, arch=MOE_ARCH)
         emit({"path": "launch_tooling", "phase_s": time.perf_counter() - t0,

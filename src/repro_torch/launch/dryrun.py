@@ -18,7 +18,10 @@ difference — one layer's forward, rematerialized forward, backward,
 optimizer update and collectives — is multiplied by the kind's layer
 count.  The port's recurrences (the ssm and rec kinds) are Python loops
 over the sequence, so those kinds are traced at two short sequence
-lengths and their counts, linear in S, extrapolated to the shape's S.
+lengths and their counts, linear in S, extrapolated to the shape's S
+(``linearity`` checks a third length).  Each collective site is
+combined by its count and output bytes, so one that grows with the
+layers or with S keeps its count.
 Parameter, optimizer and batch bytes are counted whole from the specs.
 ``loops`` lists what was multiplied.
 
@@ -242,11 +245,25 @@ def _kind_config(cfg, kind: str, n: int):
 
 
 def _lin(a: dict, b: dict, ca: float, cb: float) -> dict:
-    """ca·a + cb·b over counts, the byte fields included."""
-    out = hlo.combine([(ca, a), (cb, b)])
-    for k in ("argument_bytes", "output_bytes"):
-        out[k] = ca * a[k] + cb * b[k]
-    return out
+    """ca·a + cb·b over counts, the byte fields and each site's count and
+    output bytes included."""
+    return hlo.combine([(ca, a), (cb, b)])
+
+
+def _kind_point(cfg, t: str, shape_name, mesh, policy, notes, seq_len,
+                batch_size) -> tuple:
+    """(one layer's counts, the rest of the step's, the one-layer trace)
+    for layer kind ``t``, from its traces with one and with two layers."""
+    one = _trace(_kind_config(cfg, t, 1), shape_name, mesh, policy, notes,
+                 seq_len, batch_size)
+    two = _trace(_kind_config(cfg, t, 2), shape_name, mesh, policy, notes,
+                 seq_len, batch_size)
+    return _lin(two, one, 1.0, -1.0), _lin(one, two, 2.0, -1.0), one
+
+
+def _first_length(mesh) -> int:
+    """The shorter sequence length a recurrent kind is traced at."""
+    return max(16, max(axis_sizes(mesh).values()))
 
 
 def account(cfg, shape_name: str, mesh, policy: str, notes: list, *,
@@ -254,26 +271,25 @@ def account(cfg, shape_name: str, mesh, policy: str, notes: list, *,
     """(whole-step counts, loops, raw counts of the first trace): each
     layer kind traced with one and two layers, the recurrent kinds at two
     short sequence lengths, then combined.  Every count is linear in the
-    layers and, for a recurrent kind, in S, but the peak of live bytes,
-    which is combined the same way: an estimate."""
+    layers and, for a recurrent kind, in S (``linearity`` checks it at a
+    third length), but the peak of live bytes, which is combined the same
+    way: an estimate."""
     S, B, kind = specs.INPUT_SHAPES[shape_name]
     S = seq_len or S
     n_of = T.stack_counts(cfg)
     per_layer, bases, loops, raw = {}, [], [], None
     for t, n in sorted(n_of.items()):
         if t in _RECURRENT_KINDS and kind != "decode":
-            s1 = max(16, max(axis_sizes(mesh).values()))
+            s1 = _first_length(mesh)
             points = (s1, 2 * s1)
         else:
             points = (seq_len,)
         at = []
         for s in points:
-            one = _trace(_kind_config(cfg, t, 1), shape_name, mesh, policy,
-                         notes, s, batch_size)
-            two = _trace(_kind_config(cfg, t, 2), shape_name, mesh, policy,
-                         notes, s, batch_size)
+            layer, base, one = _kind_point(cfg, t, shape_name, mesh, policy,
+                                           notes, s, batch_size)
             raw = raw or one
-            at.append((_lin(two, one, 1.0, -1.0), _lin(one, two, 2.0, -1.0)))
+            at.append((layer, base))
         if len(at) == 2:
             # linear in S: X(S) = X(s1) + (S - s1)/(s2 - s1)·(X(s2) - X(s1))
             s1, s2 = points
@@ -298,6 +314,46 @@ def account(cfg, shape_name: str, mesh, policy: str, notes: list, *,
     total["argument_bytes"] = _argument_bytes(cfg, shape_name, mesh, policy,
                                               seq_len, batch_size)
     return total, loops, raw
+
+
+def linearity(arch: str, kind: str, *, cfg=None, mesh=None) -> dict:
+    """Whether ``account``'s extrapolation of the recurrent layer kind
+    ``kind`` in S holds for ``train_4k`` under ``fsdp_tp``: the kind traced
+    at s1, 2·s1 and 4·s1, and the third trace's counts (one layer's, and
+    the rest of the step's) held against the line through the first two.
+    -> {"traced": [...], "max_rel_err": the largest, "rel_err": {metric:
+    relative error}} over FLOPs, bytes, wire bytes and each collective's
+    count (by kind, group size and provenance).  ``cfg`` and ``mesh`` as
+    ``dry_run``'s."""
+    cfg = cfg if cfg is not None else configs.get(arch)
+    with contextlib.ExitStack() as stack:
+        if mesh is None:
+            stack.enter_context(fake_world(256))
+            mesh = make_production_mesh()
+        stack.callback(shard_ctx.set_sharder, None)
+        s1 = _first_length(mesh)
+        points = (s1, 2 * s1, 4 * s1)
+        at = [_kind_point(cfg, kind, "train_4k", mesh, "fsdp_tp", [], s,
+                          None)[:2] for s in points]
+    errs = {}
+    for i, part in enumerate(("layer", "rest")):
+        got = _lin(at[0][i], at[1][i], -2.0, 3.0)     # 4·s1 on the line
+        want = at[2][i]
+        a, b = hlo.summarize(got), hlo.summarize(want)
+        for k in ("flops", "traffic_bytes", "wire_bytes"):
+            errs[f"{part} {k}"] = _rel(a[k], b[k])
+        for key in sorted(set(got["sites"]) | set(want["sites"])):
+            errs[f"{part} count {' '.join(map(str, key))}"] = _rel(
+                got["sites"].get(key, (0.0,))[0],
+                want["sites"].get(key, (0.0,))[0])
+    return {"arch": arch, "kind": kind, "traced": list(points),
+            "max_rel_err": max(errs.values()), "rel_err": errs}
+
+
+def _rel(a: float, b: float) -> float:
+    """|a - b| relative to |b| (0 where both are 0)."""
+    d = abs(a - b)
+    return d / abs(b) if b else (0.0 if d < 1e-9 else math.inf)
 
 
 def _argument_bytes(cfg, shape_name, mesh, policy, seq_len=None,
@@ -371,7 +427,10 @@ def dry_run(arch: str, shape_name: str, *, multi_pod: bool = False,
         "model_flops_total": mf,
         "model_flops_per_device": mf / n_chips,
         "useful_flops_ratio": (mf / n_chips) / flops_dev if flops_dev else 0.0,
-        "sites": [list(k) + [m] for k, m in counts["sites"].items()],
+        # [kind, mean output bytes, group size, provenance, count]
+        "sites": [[kind, ob / m, n, site, m]
+                  for (kind, n, site), (m, ob) in counts["sites"].items()
+                  if m > 1e-6],
         "notes": notes,
     }
     terms = result["roofline"]

@@ -154,14 +154,17 @@ def analyze(fn, *args, device=None, **kwargs) -> tuple:
     """Run ``fn(*args, **kwargs)`` under the per-device counter: (the
     counts, ``fn``'s result).  With ``device`` only the operations on that
     device count (the dry run's meta tensors).  The counts are linear in
-    repeated work, so ``combine`` can add and scale them."""
+    repeated work, so ``combine`` can add and scale them.  ``sites``:
+    (kind, group size, provenance) -> [count, output bytes summed]."""
     counter = _OpCounter(local=True, site=current_site, device=device)
     with _paused_in_propagation(counter), _SiteStamp(), counter:
         out = fn(*args, **kwargs)
     sites: dict = {}
     for c in counter.collectives:
-        key = (c["kind"], c["out_bytes"], c["group_size"], c["site"])
-        sites[key] = sites.get(key, 0.0) + 1.0
+        acc = sites.setdefault((c["kind"], c["group_size"], c["site"]),
+                               [0.0, 0.0])
+        acc[0] += 1.0
+        acc[1] += c["out_bytes"]
     counts = {"flops": float(counter.products + counter.vector_products),
               "pointwise_flops": float(counter.pointwise),
               "traffic_bytes": float(counter.bytes),
@@ -171,16 +174,23 @@ def analyze(fn, *args, device=None, **kwargs) -> tuple:
 
 def combine(terms) -> dict:
     """Σ coef·counts over ``terms`` = [(coef, counts), ...]: the counts of
-    a step made of repeated traced bodies.  A site whose multiplicity
-    comes to ~0 is dropped."""
-    out = {"flops": 0.0, "pointwise_flops": 0.0, "traffic_bytes": 0.0,
-           "peak_bytes": 0.0, "sites": {}}
+    a step made of repeated traced bodies, every field of the first term's
+    summed.  A site's count and output bytes combine apart, so one that
+    grows with the repeated work (a stacked leaf's collective with the
+    layers, a recurrence's with S) keeps its count, and a term's negative
+    part cancels; a site whose count and bytes both come to ~0 is
+    dropped."""
+    out = {k: 0.0 for k in terms[0][1] if k != "sites"}
+    sites: dict = {}
     for coef, c in terms:
-        for k in ("flops", "pointwise_flops", "traffic_bytes", "peak_bytes"):
+        for k in out:
             out[k] += coef * c[k]
-        for key, m in c["sites"].items():
-            out["sites"][key] = out["sites"].get(key, 0.0) + coef * m
-    out["sites"] = {k: m for k, m in out["sites"].items() if m > 1e-6}
+        for key, (m, ob) in c["sites"].items():
+            acc = sites.setdefault(key, [0.0, 0.0])
+            acc[0] += coef * m
+            acc[1] += coef * ob
+    out["sites"] = {k: v for k, v in sites.items()
+                    if abs(v[0]) > 1e-6 or abs(v[1]) > 1e-6}
     return out
 
 
@@ -191,12 +201,12 @@ def summarize(counts: dict, loops=()) -> dict:
               "pointwise_flops": counts["pointwise_flops"],
               "traffic_bytes": counts["traffic_bytes"], "wire_bytes": 0.0,
               "collectives": {}, "loops": list(loops)}
-    for (kind, ob, n, _), mult in counts["sites"].items():
-        wb = mult * _wire_bytes(kind, ob, n)
+    for (kind, n, _), (mult, ob) in counts["sites"].items():
+        wb = _wire_bytes(kind, ob, n)      # linear in the bytes
         totals["wire_bytes"] += wb
         k = totals["collectives"].setdefault(
             kind, {"count": 0.0, "out_bytes": 0.0, "wire_bytes": 0.0})
         k["count"] += mult
-        k["out_bytes"] += mult * ob
+        k["out_bytes"] += ob
         k["wire_bytes"] += wb
     return totals

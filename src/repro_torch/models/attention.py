@@ -12,7 +12,8 @@ import torch
 from ..kernels import ops
 from .common import ModelConfig
 from .layers import apply_mrope, apply_rope, causal_mask_bias, rms_norm
-from .shard_ctx import heads_local, project, reshape, shard, split_heads
+from .shard_ctx import (heads_local, project, reshape, shard, split_heads,
+                        write_rows)
 
 
 def qkv_project(cfg: ModelConfig, p, x, positions):
@@ -130,8 +131,8 @@ def decode_attention_block(cfg: ModelConfig, p, x, cache, position: int, *,
                           pos.expand(3, B, 1) if cfg.mrope else pos)
     S = cache["k"].shape[1]
     slot = position % S                                       # ring buffer
-    cache["k"][:, slot:slot + 1].copy_(k)
-    cache["v"][:, slot:slot + 1].copy_(v)
+    write_rows(cache["k"], k, slot)
+    write_rows(cache["v"], v, slot)
     out = decode_attention(cfg, q, cache["k"], cache["v"],
                            min(position + 1, S))
     return project(reshape(out, (B, 1, cfg.q_dim)), p["wo"]), cache

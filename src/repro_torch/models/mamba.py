@@ -37,10 +37,13 @@ def _causal_conv(x, conv_w, conv_b, state=None):
     return (y, xin[:, -(W - 1):, :]) if state is not None else y
 
 
-def _ssm_inputs(cfg: ModelConfig, p, u):
+def _ssm_inputs(cfg: ModelConfig, p, u, reduce=None):
     """u: (B,S,di) post-conv activations -> (delta, B_ssm, C_ssm).
-    delta: (B,S,di); B_ssm/C_ssm: (B,S,state)."""
+    delta: (B,S,di); B_ssm/C_ssm: (B,S,state).  ``reduce`` sums the
+    x_proj contraction over the channel shards (``channels_local``)."""
     proj = u @ p["x_proj"]                                  # (B,S,R+2N)
+    if reduce is not None:
+        proj = reduce(proj)
     R, N = cfg.dt_rank, cfg.ssm_state
     dt, B_ssm, C_ssm = torch.split(proj, [R, N, N], dim=-1)
     delta = F.softplus(dt @ p["dt_proj"] + p["dt_bias"])    # (B,S,di)
@@ -68,15 +71,18 @@ def selective_scan(cfg: ModelConfig, p, u, delta, B_ssm, C_ssm, h0=None):
     return y, h
 
 
-def _scan(cfg: ModelConfig, kernel: bool):
-    """The scan as ``shard_ctx.channels_local`` calls it: the kernel
-    (no final state), or the plain recurrence from ``h0``."""
-    def run(u, delta, B_ssm, C_ssm, A_log, D, h0):
-        if kernel:
-            return ops.ssm_scan(u, delta, B_ssm, C_ssm, A_log, D), None
-        return selective_scan(cfg, {"A_log": A_log, "D": D}, u, delta,
-                              B_ssm, C_ssm, h0)
-    return run
+# the block's parameters as ``shard_ctx.channels_local`` lays them out:
+# d_inner on the columns, per channel, on the rows
+_COLS = ("in_proj_u", "in_proj_z", "dt_proj")
+_CHANNELS = ("conv_w", "conv_b", "dt_bias", "A_log", "D")
+_ROWS = ("x_proj", "out_proj")
+
+
+def _local(fn, p, x, state=None):
+    """``fn`` on the block's channel shards (``shard_ctx.channels_local``)."""
+    return channels_local(fn, x, {k: p[k] for k in _COLS},
+                          {k: p[k] for k in _CHANNELS},
+                          {k: p[k] for k in _ROWS}, state)
 
 
 def mamba_block(cfg: ModelConfig, p, x, *, impl: str = "xla",
@@ -84,30 +90,41 @@ def mamba_block(cfg: ModelConfig, p, x, *, impl: str = "xla",
     """Full mamba mixing block (no residual/norm).  x: (B,S,d) -> (B,S,d).
     With ``return_state`` also returns the streaming state (prefill):
     {"conv": the last W-1 inputs of the conv, "h": the scan's final
-    state}."""
-    u_raw = x @ p["in_proj_u"]                              # (B,S,di)
-    z = x @ p["in_proj_z"]                                  # (B,S,di)
-    u = F.silu(_causal_conv(u_raw, p["conv_w"], p["conv_b"]))
-    delta, B_ssm, C_ssm = _ssm_inputs(cfg, p, u)
+    state}.  Under a mesh the block runs on local shards of d_inner."""
     kernel = impl == "pallas" and not return_state
-    y, h = channels_local(_scan(cfg, kernel), (u, delta), (B_ssm, C_ssm),
-                          (p["A_log"], p["D"]))
-    out = (y * F.silu(z)) @ p["out_proj"]
-    if return_state:
+
+    def body(x, p, state, gather, reduce):
+        u_raw = x @ p["in_proj_u"]                          # (B,S,di)
+        z = x @ p["in_proj_z"]                              # (B,S,di)
+        u = F.silu(_causal_conv(u_raw, p["conv_w"], p["conv_b"]))
+        delta, B_ssm, C_ssm = _ssm_inputs(cfg, p, u, reduce)
+        if kernel:
+            y, h = ops.ssm_scan(u, delta, B_ssm, C_ssm, p["A_log"],
+                                p["D"]), None
+        else:
+            y, h = selective_scan(cfg, p, u, delta, B_ssm, C_ssm)
+        out = (y * F.silu(z)) @ p["out_proj"]
+        if not return_state:
+            return out, None
         W = p["conv_w"].shape[1]
         return out, {"conv": u_raw[:, -(W - 1):, :], "h": h}
-    return out
+
+    out, state = _local(body, p, x)
+    return (out, state) if return_state else out
 
 
 def mamba_decode_step(cfg: ModelConfig, p, x, state):
     """x: (B,1,d); state: {"conv": (B,W-1,di), "h": (B,di,N)} -> (y, the
     new state)."""
-    u = x @ p["in_proj_u"]
-    z = x @ p["in_proj_z"]
-    u, conv_state = _causal_conv(u, p["conv_w"], p["conv_b"], state["conv"])
-    u = F.silu(u)
-    delta, B_ssm, C_ssm = _ssm_inputs(cfg, p, u)
-    y, h = channels_local(_scan(cfg, False), (u, delta), (B_ssm, C_ssm),
-                          (p["A_log"], p["D"]), state["h"])
-    y = y * F.silu(z)
-    return y @ p["out_proj"], {"conv": conv_state, "h": h}
+    def body(x, p, state, gather, reduce):
+        u = x @ p["in_proj_u"]
+        z = x @ p["in_proj_z"]
+        u, conv_state = _causal_conv(u, p["conv_w"], p["conv_b"],
+                                     state["conv"])
+        u = F.silu(u)
+        delta, B_ssm, C_ssm = _ssm_inputs(cfg, p, u, reduce)
+        y, h = selective_scan(cfg, p, u, delta, B_ssm, C_ssm, state["h"])
+        y = y * F.silu(z)
+        return y @ p["out_proj"], {"conv": conv_state, "h": h}
+
+    return _local(body, p, x, state)

@@ -21,15 +21,22 @@ import torch.nn.functional as F
 from ..kernels import ops
 from .common import ModelConfig
 from .mamba import _causal_conv
+from .shard_ctx import channels_local
 
 _C = 8.0
 
 
 def rg_lru(p, x, h0=None, *, impl: str = "xla"):
     """x: (B,S,W) -> (y, h_final).  Gates are per-channel diagonal."""
+    return _rg_lru(p, x, x, h0, impl)
+
+
+def _rg_lru(p, x, x_all, h0, impl: str):
+    """``rg_lru`` on a shard of the channels: x (B,S,W) those channels,
+    ``x_all`` all of them, which the gates' products mix."""
     B, _, W = x.shape
-    r = torch.sigmoid(x @ p["w_a"])                      # (B,S,W)
-    i = torch.sigmoid(x @ p["w_x"])
+    r = torch.sigmoid(x_all @ p["w_a"])                  # (B,S,W)
+    i = torch.sigmoid(x_all @ p["w_x"])
     log_a = -_C * F.softplus(p["lambda_p"].float()) * r.float()
     a = torch.exp(log_a)
     gated = (i * x).float() * torch.sqrt(
@@ -51,6 +58,13 @@ def rg_lru(p, x, h0=None, *, impl: str = "xla"):
     return torch.stack(ys, dim=1), h
 
 
+# the block's parameters as ``shard_ctx.channels_local`` lays them out:
+# channels on the columns, per channel, on the rows
+_COLS = ("in_proj_rnn", "in_proj_gate", "w_a", "w_x")
+_CHANNELS = ("conv_w", "conv_b", "lambda_p")
+_ROWS = ("out_proj",)
+
+
 def recurrent_block(cfg: ModelConfig, p, x, state=None, *,
                     return_state: bool = False, impl: str = "xla"):
     """Griffin temporal-mixing block, x: (B,S,d) -> (B,S,d): (linear →
@@ -59,18 +73,26 @@ def recurrent_block(cfg: ModelConfig, p, x, state=None, *,
 
     With ``state`` ({"conv": (B,W-1,w), "h": (B,w)}) it runs streaming
     decode and returns (y, new_state); with ``return_state`` (prefill) it
-    returns the final streaming state beside the full-sequence output."""
-    u_raw = x @ p["in_proj_rnn"]                         # (B,S,w)
-    g = F.gelu(x @ p["in_proj_gate"], approximate="tanh")
-    if state is not None:
-        u, conv_state = _causal_conv(u_raw, p["conv_w"], p["conv_b"],
-                                     state["conv"])
-        y, h = rg_lru(p, u, h0=state["h"])
-        return (y * g) @ p["out_proj"], {"conv": conv_state, "h": h}
-    u = _causal_conv(u_raw, p["conv_w"], p["conv_b"])
-    y, h = rg_lru(p, u, impl=impl)
-    out = (y * g) @ p["out_proj"]
-    if return_state:
-        W = p["conv_w"].shape[1]
-        return out, {"conv": u_raw[:, -(W - 1):, :], "h": h}
-    return out
+    returns the final streaming state beside the full-sequence output.
+    Under a mesh the block runs on local shards of the LRU width
+    (``shard_ctx.channels_local``)."""
+    def body(x, p, state, gather, reduce):
+        u_raw = x @ p["in_proj_rnn"]                     # (B,S,w)
+        g = F.gelu(x @ p["in_proj_gate"], approximate="tanh")
+        if state is not None:
+            u, conv_state = _causal_conv(u_raw, p["conv_w"], p["conv_b"],
+                                         state["conv"])
+            y, h = _rg_lru(p, u, gather(u), state["h"], "xla")
+            return (y * g) @ p["out_proj"], {"conv": conv_state, "h": h}
+        u = _causal_conv(u_raw, p["conv_w"], p["conv_b"])
+        y, h = _rg_lru(p, u, gather(u), None, impl)
+        out = (y * g) @ p["out_proj"]
+        if return_state:
+            W = p["conv_w"].shape[1]
+            return out, {"conv": u_raw[:, -(W - 1):, :], "h": h}
+        return out, None
+
+    out, new = channels_local(body, x, {k: p[k] for k in _COLS},
+                              {k: p[k] for k in _CHANNELS},
+                              {k: p[k] for k in _ROWS}, state)
+    return (out, new) if state is not None or return_state else out

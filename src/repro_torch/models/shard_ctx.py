@@ -10,9 +10,11 @@ mesh runs exactly as before.
 The layouts of the model under a mesh: the embedding's vocabulary
 (``embed_local``) and the residual stream's (``stream``); the attention
 heads' (``split_heads``, ``reshape``, ``heads_local``), the products'
-(``project``), the MoE block's experts (``experts_local``) and the mamba
-scan's channels (``channels_local``); and the blocks' ends
-(``reduced_grad`` at a block's input, ``residual`` at its output).  A plain tensor takes the plain
+(``project``), the MoE block's experts (``experts_local``), the
+recurrent blocks' channels (``channels_local``: the mamba and Griffin
+blocks), the loss's vocabulary (``loss_local``) and decode's cache rows
+(``write_rows``); and the blocks' ends (``reduced_grad`` at a block's
+input, ``residual`` at its output).  A plain tensor takes the plain
 ``reshape``, call or sum.  A DTensor takes a layout chosen here, not
 DTensor's view strategy or its cost model, whose answers differ between
 torch versions (one refuses to split a dim sharded into half heads,
@@ -317,6 +319,122 @@ def vocab_rows(rows, tokens, v0: int):
                        zero)
 
 
+def loss_local(hc, lm_head, yc):
+    """Σ (log Z − gold logit) over a loss chunk's tokens: hc (B, c, d),
+    the LM head (d, Vp), labels yc (B, c).  Plain tensors: the plain
+    lines.  DTensors: vocabulary-parallel, the reference's ``"logits"``
+    rule (Vp over ``model``) kept: hc is gathered over the mesh dims that
+    split the head's columns (its rows kept elsewhere), the head over the
+    others, and the float32 logits (``"logits"``-pinned) stay split.
+    Each vocabulary shard takes the logsumexp of its own columns and the
+    gold logit of the labels that fall there (``vocab_pick``, zero
+    elsewhere); only these (B, c, n_shards) parts cross the wire, never
+    the logits or their gradient, and log Z is their ``logsumexp_parts``.
+    Every vocabulary shard combines the same parts, so the chunk's sum is
+    a replica there and a partial sum over the rows' shards; the head's
+    gradient comes back column-split, hc's a partial sum over the
+    vocabulary dims.  With no vocabulary dim (pure FSDP: the batch owns
+    the mesh) the plain lines run on the local rows."""
+    if not _is_dtensor(hc):
+        logits = shard((hc @ lm_head).float(), "logits")            # (B,c,Vp)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, yc[..., None].long())[..., 0]
+        return torch.sum(logz - gold)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = hc.device_mesh
+    B, c = hc.shape[:2]
+    Vp = lm_head.shape[1]
+    cols = [i for i, p in enumerate(lm_head.placements)
+            if _shard_dim(p) == 1 and mesh.size(i) > 1]
+    if Vp % math.prod(mesh.size(i) for i in cols):
+        cols = []
+    h = _placed(hc, tuple(
+        p if i not in cols and _shard_dim(p) in (0, 1) else Replicate()
+        for i, p in enumerate(hc.placements)))
+    w = _placed(lm_head, tuple(Shard(1) if i in cols else Replicate()
+                               for i in range(mesh.ndim)))
+    h_l, w_l, pl = _product_local(h, w)
+    logits = shard(_from_local((h_l @ w_l).float(), mesh, pl, (B, c, Vp)),
+                   "logits")
+    pl = tuple(logits.placements)
+    vocab = [i for i, p in enumerate(pl)
+             if _shard_dim(p) == 2 and mesh.size(i) > 1]
+    rows = tuple(Replicate() if i in vocab else p for i, p in enumerate(pl))
+    z = logits.to_local(grad_placements=pl)
+    y = _placed(yc, rows).to_local()
+    if vocab:
+        coord = mesh.get_coordinate()
+        v0 = 0
+        for i in vocab:
+            v0 = v0 * mesh.size(i) + coord[i]
+        n = math.prod(mesh.size(i) for i in vocab)
+        part = torch.stack([torch.logsumexp(z, dim=-1),
+                            vocab_pick(z, y, v0 * z.shape[-1])], dim=-1)
+        # every vocabulary shard's (log Z, gold) part: (B_l, c_l, n, 2)
+        parts = _placed(_from_local(
+            part[:, :, None], mesh,
+            tuple(Shard(2) if i in vocab else p for i, p in enumerate(pl)),
+            (B, c, n, 2)), rows).to_local(grad_placements=rows)
+        logz = logsumexp_parts(parts[..., 0])
+        gold = parts[..., 1].sum(dim=-1)
+    else:
+        logz = torch.logsumexp(z, dim=-1)
+        gold = torch.gather(z, -1, y[..., None].long())[..., 0]
+    return _from_local(torch.sum(logz - gold), mesh, tuple(
+        Replicate() if p.is_replicate() else Partial() for p in rows), ())
+
+
+def vocab_pick(logits, labels, v0: int):
+    """One vocabulary shard's gold logits: ``logits`` (..., V_l) holds the
+    columns [v0, v0 + V_l); a label there gets its logit, any other a
+    zero (exactly one shard holds each label)."""
+    ids = labels.long() - v0
+    hit = (ids >= 0) & (ids < logits.shape[-1])
+    zero = torch.zeros((), dtype=logits.dtype, device=logits.device)
+    picked = torch.gather(logits, -1,
+                          ids.clamp(0, logits.shape[-1] - 1)[..., None])
+    return torch.where(hit, picked[..., 0], zero)
+
+
+def logsumexp_parts(lse):
+    """log Σᵢ exp(lseᵢ) over the last dim of the shards' logsumexps, as
+    m + log Σᵢ exp(lseᵢ − m) with m their detached max: a single part
+    adds log(exp(0)) = 0.0 to itself, and its gradient is 1.0."""
+    m = lse.detach().amax(dim=-1, keepdim=True)
+    return (m + torch.log(torch.exp(lse - m).sum(dim=-1, keepdim=True))
+            )[..., 0]
+
+
+# ------------------------------------------------------------ cache rows
+def write_rows(cache, rows, slot: int) -> None:
+    """``cache[:, slot:slot + n] = rows`` in place, for a cache (B, S, ...)
+    and rows (B, n, ...).  A DTensor cache is written on its local shards:
+    the rows are replicated over the mesh dims that split the cache's
+    sequence (the serving layout puts it over ``model``) and laid out as
+    the cache elsewhere, and the shard that holds the slots writes them.
+    DTensor's own slice of a split sequence is a gathered copy, so the
+    write would be lost."""
+    n = rows.shape[1]
+    if not _is_dtensor(cache):
+        cache[:, slot:slot + n].copy_(rows)
+        return
+    from torch.distributed.tensor import Replicate
+    mesh = cache.device_mesh
+    seq = [i for i, p in enumerate(cache.placements)
+           if _shard_dim(p) == 1 and mesh.size(i) > 1]
+    r = _placed(rows, tuple(Replicate() if i in seq or p.is_partial() else p
+                            for i, p in enumerate(cache.placements)))
+    local, r = cache.to_local(), r.to_local()
+    coord = mesh.get_coordinate()
+    block = 0
+    for i in seq:
+        block = block * mesh.size(i) + coord[i]
+    start = slot - block * local.shape[1]
+    lo, hi = max(start, 0), min(start + n, local.shape[1])
+    if lo < hi:
+        local[:, lo:hi].copy_(r[:, lo - start:hi - start])
+
+
 # ---------------------------------------------------------- row products
 def project(x, w):
     """``x @ w`` for an activation x (..., K) and a weight w (K, N).
@@ -336,8 +454,15 @@ def project(x, w):
     (attention's output under query blocks, split over the sequence)."""
     if not _is_dtensor(x):
         return x @ w
+    x_l, w_l, y_pl = _product_local(x, w)
+    return _from_local(x_l @ w_l, x.device_mesh, y_pl,
+                       tuple(x.shape[:-1]) + (w.shape[1],))
+
+
+def _product_local(x, w):
+    """``project``'s layout: (x's local shard, w's, the product's
+    placements)."""
     from torch.distributed.tensor import Partial, Replicate, Shard
-    mesh = x.device_mesh
     last = x.ndim - 1
     x_pl, xg_pl, w_pl, wg_pl, y_pl = [], [], [], [], []
     for i, (px, pw) in enumerate(zip(x.placements, w.placements)):
@@ -356,58 +481,161 @@ def project(x, w):
             acc.append(p)
     x_l = _placed(x, tuple(x_pl)).to_local(grad_placements=tuple(xg_pl))
     w_l = _placed(w, tuple(w_pl)).to_local(grad_placements=tuple(wg_pl))
-    return _from_local(x_l @ w_l, mesh, tuple(y_pl),
-                       tuple(x.shape[:-1]) + (w.shape[1],))
+    return x_l, w_l, tuple(y_pl)
 
 
 # --------------------------------------------------------- channel layout
-def channels_local(fn: Callable, chan: tuple, shared: tuple = (),
-                   params: tuple = (), h0=None):
-    """``fn(*chan, *shared, *params, h0)`` -> (y (B, S, C), h (B, C, ...)
-    or None) for a recurrence whose C channels are independent: ``chan``
-    (B, S, C) per channel, ``shared`` (B, S, N) read by every channel,
-    ``params`` (C, ...) per channel, ``h0`` (B, C, ...) or None.  Plain
-    tensors: the plain call.  DTensors: ``fn`` runs on local shards, each
-    mesh dim holding a shard of the channels where ``chan[0]``'s are split
-    there (the rules put the mamba block's d_inner over ``model``), a
-    batch shard where its batch is split, else a replica; ``shared`` is
-    replicated over the channels' dims (its gradient a partial sum there)
-    and the parameters' gradients are partial sums over the batch shards.
-    No step of the scan is left to DTensor, whose layouts differ between
-    torch versions (one gathers the state over the channels every time
-    step)."""
-    if not _is_dtensor(chan[0]):
-        return fn(*chan, *shared, *params, h0)
+def channels_local(fn: Callable, x, cols: dict, chans: dict, rows: dict,
+                   state: Optional[dict] = None):
+    """``fn(x, params, state, gather, reduce)`` -> (y (B, S, N), new state
+    or None) for a recurrent block on x (B, S, d) whose C channels are
+    independent but for the products that mix them: ``cols`` are (K, C)
+    weights (the channels on their columns), ``chans`` (C, ...) per-channel
+    parameters, ``rows`` (C, N) weights (the channels contracted);
+    ``state`` a dict of tensors, "conv" (B, W-1, C) and the others
+    (B, C, ...); ``gather`` takes (B, S', C) to all C channels and
+    ``reduce`` sums a contraction over them.  Plain tensors: ``fn`` on them
+    all, ``gather`` and ``reduce`` the identity.
+
+    DTensors (the rules put the mamba block's d_inner and the Griffin
+    block's LRU width over ``model``) take Megatron's layout, the same at
+    every sequence length: ``fn`` gets local shards, each mesh dim holding
+    a shard of the channels where ``chans``' first is split there, a batch
+    shard where x's batch is, else (a decode batch of one) a block of each
+    channel shard where they divide, else a replica.  x is replicated over
+    the channels' dims (its gradient a partial sum there), ``cols`` are
+    column-split and ``rows`` row-split there and gathered elsewhere (their
+    gradients partial sums over the batch shards); ``gather`` all-gathers
+    over the channels' dims (a reduce-scatter in the backward), ``reduce``
+    all-reduces there (and its gradient), and y comes back a partial sum
+    over them, for ``residual`` to reduce.  No step of the block is left
+    to DTensor, whose layouts differ between torch versions (one gathers
+    the mamba scan's state every time step) and with the sequence length
+    (the Griffin block's gate products: at S = 16 the activations
+    gathered, from S = 32 on the weights; mamba's ``dt_proj``), which the
+    dry run's extrapolation in S cannot follow."""
+    if not _is_dtensor(x):
+        return fn(x, {**cols, **chans, **rows}, state, _same, _same)
     from torch.distributed.tensor import Partial, Replicate, Shard
-    mesh = chan[0].device_mesh
-    B, S, C = chan[0].shape
+    mesh = x.device_mesh
+    B, S = x.shape[:2]
+    first = next(iter(chans.values()))
+    C = first.shape[0]
+    ch = [i for i, p in enumerate(first.placements)
+          if _shard_dim(p) == 0 and mesh.size(i) > 1]
+    n_ch = math.prod(mesh.size(i) for i in ch)
+    if C % n_ch:
+        ch, n_ch = [], 1
+    batch = [i for i, p in enumerate(x.placements)
+             if _shard_dim(p) == 0 and i not in ch and mesh.size(i) > 1]
+    if B % math.prod(mesh.size(i) for i in batch):
+        batch = []
+    # a mesh dim with no batch shard (a decode batch of one) would run the
+    # whole block on each of its shards: each takes a block of its channel
+    # shard, sliced locally (a sub-block, so no weight moves)
+    idle = [i for i in range(mesh.ndim)
+            if i not in ch + batch and mesh.size(i) > 1]
+    n_sub = math.prod(mesh.size(i) for i in idle)
+    if (C // n_ch) % n_sub:
+        idle, n_sub = [], 1
+    c = C // n_ch // n_sub
+    coord = mesh.get_coordinate()
+    j = 0
+    for i in idle:
+        j = j * mesh.size(i) + coord[i]
 
-    def split(dim):
-        dims = [i for i, p in enumerate(chan[0].placements)
-                if _shard_dim(p) == dim and mesh.size(i) > 1]
-        n = math.prod(mesh.size(i) for i in dims)
-        return dims if chan[0].shape[dim] % n == 0 else []
+    def pl(on_batch, on_ch, on_idle=Replicate()):
+        return tuple(on_batch if i in batch else on_ch if i in ch else
+                     on_idle if i in idle else Replicate()
+                     for i in range(mesh.ndim))
 
-    ch, batch = split(2), split(0)
+    def local(t, placed, grad, dim=None):
+        t = _placed(t, placed).to_local(grad_placements=grad)
+        return t if dim is None or not idle else t.narrow(dim, j * c, c)
 
-    def pl(on_batch, on_ch):
-        return tuple(on_batch if i in batch else on_ch if i in ch
-                     else Replicate() for i in range(mesh.ndim))
+    def dim_of(k):
+        return 2 if k == "conv" else 1
 
-    def local(t, placed, grad):
-        return _placed(t, placed).to_local(grad_placements=grad)
+    def whole(t, k):
+        """A state's global shape from its local shard."""
+        shape = list(t.shape)
+        shape[0], shape[dim_of(k)] = B, C
+        return tuple(shape)
 
-    rows = pl(Shard(0), Shard(2))
-    args = [local(t, rows, rows) for t in chan]
-    args += [local(t, pl(Shard(0), Replicate()), pl(Shard(0), Partial()))
-             for t in shared]
-    args += [local(t, pl(Replicate(), Shard(0)), pl(Partial(), Shard(0)))
-             for t in params]
-    state = pl(Shard(0), Shard(1))
-    y, h = fn(*args, None if h0 is None else local(h0, state, state))
-    return (_from_local(y, mesh, rows, (B, S, C)),
-            None if h is None else
-            _from_local(h, mesh, state, (B, C) + tuple(h.shape[2:])))
+    x_l = local(x, pl(Shard(0), Replicate()),
+                pl(Shard(0), Partial(), Partial()))
+    params = {k: local(w, pl(Replicate(), Shard(1)),
+                       pl(Partial(), Shard(1), Partial()), 1)
+              for k, w in cols.items()}
+    params.update({k: local(w, pl(Replicate(), Shard(0)),
+                            pl(Partial(), Shard(0), Partial()), 0)
+                   for k, w in {**chans, **rows}.items()})
+    st = None if state is None else \
+        {k: local(t, pl(Shard(0), Shard(dim_of(k))),
+                  pl(Shard(0), Shard(dim_of(k)), Partial()), dim_of(k))
+         for k, t in state.items()}
+
+    def gather(t):
+        # (B, S', c) -> (B, S', n_ch, n_sub, c) -> (B, S', C): the
+        # channel shards in order, each its sub-blocks in order
+        if not ch and not idle:
+            return t
+        parts = _from_local(t[:, :, None, None, :], mesh,
+                            pl(Shard(0), Shard(2), Shard(3)),
+                            (B, t.shape[1], n_ch, n_sub, c))
+        return local(parts, pl(Shard(0), Replicate()),
+                     pl(Shard(0), Partial(), Partial())).flatten(2)
+
+    def reduce(t):
+        if not ch and not idle:
+            return t
+        return _AllReduce.apply(t, mesh, pl(Shard(0), Partial(), Partial()),
+                                pl(Shard(0), Replicate()),
+                                (B,) + tuple(t.shape[1:]))
+
+    def state_out(t, k):
+        d = dim_of(k)
+        if idle:
+            # the sub-blocks gathered back into each channel shard
+            shape = [B] + list(t.shape[1:])
+            shape[d:d + 1] = [n_sub, n_ch * c]
+            parts = _from_local(t.unsqueeze(d), mesh,
+                                pl(Shard(0), Shard(d + 1), Shard(d)),
+                                tuple(shape))
+            t = _placed(parts, pl(Shard(0), Shard(d + 1))).to_local() \
+                .flatten(d, d + 1)
+        return _from_local(t, mesh, pl(Shard(0), Shard(d)), whole(t, k))
+
+    y, new = fn(x_l, params, st, gather, reduce)
+    y = _from_local(y, mesh, pl(Shard(0), Partial(), Partial()),
+                    (B, S, y.shape[2]))
+    if new is not None:
+        new = {k: None if t is None else state_out(t, k)
+               for k, t in new.items()}
+    return y, new
+
+
+def _same(t):
+    return t
+
+
+class _AllReduce(torch.autograd.Function):
+    """A local part summed over the mesh dims where ``partial`` holds a
+    partial sum, in the forward, and its gradient (each shard's part of
+    it) in the backward: Megatron's g, then f, on local tensors."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, partial, whole, shape):
+        ctx.args = (mesh, partial, whole, shape)
+        return _from_local(t, mesh, partial, shape).redistribute(
+            mesh, whole).to_local()
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, partial, whole, shape = ctx.args
+        return (_from_local(g.contiguous(), mesh, partial, shape)
+                .redistribute(mesh, whole).to_local(), None, None, None,
+                None)
 
 
 # ---------------------------------------------------------- expert layout
@@ -503,9 +731,10 @@ def _from_local(local, mesh, placements, shape):
     the strides are worked out here, not from a tensor, which the dry
     run's counter would count."""
     from torch.distributed.tensor import DTensor
-    stride = [1]
-    for s in reversed(shape[1:]):
-        stride.insert(0, stride[0] * s)
+    stride, n = [], 1
+    for s in reversed(shape):
+        stride.insert(0, n)
+        n *= s
     return DTensor.from_local(local, mesh, placements, run_check=False,
                               shape=torch.Size(shape), stride=tuple(stride))
 

@@ -46,7 +46,8 @@ from .layers import dense_init, rms_norm, swiglu
 from .mamba import mamba_block, mamba_decode_step
 from .moe import moe_block
 from .rglru import recurrent_block
-from .shard_ctx import embed_local, reduced_grad, residual, shard, stream
+from .shard_ctx import (embed_local, loss_local, reduced_grad, residual,
+                        shard, stream)
 
 
 def vocab_padded(cfg: ModelConfig) -> int:
@@ -314,12 +315,9 @@ def embed_inputs(cfg: ModelConfig, params, batch):
 
 
 def _chunk_loss(hc, lm_head, yc):
-    """Σ (log Z - gold logit) over one chunk's tokens."""
-    hc = shard(hc, "act_btd")
-    logits = shard((hc @ lm_head).float(), "logits")             # (B,c,Vp)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, yc[..., None].long())[..., 0]
-    return torch.sum(logz - gold)
+    """Σ (log Z - gold logit) over one chunk's tokens (vocabulary-parallel
+    under a mesh: ``shard_ctx.loss_local``)."""
+    return loss_local(shard(hc, "act_btd"), lm_head, yc)
 
 
 def lm_loss(cfg: ModelConfig, h, lm_head, labels, *, chunk: int = 512):

@@ -1,6 +1,7 @@
 """Which operations a step dispatches on DTensors, and where: the
 helpers of the layout tests (``test_torch_embed_split.py``,
-``test_torch_head_split.py``).  A step is built by the dry run
+``test_torch_head_split.py``, ``test_torch_loss_split.py``,
+``test_torch_rglru_split.py``).  A step is built by the dry run
 (``launch/dryrun.build_step``) on a 2×2 fake world of meta tensors and
 run under ``launch/hlo``'s site stamp, so an operation in the backward
 pass is named by its autograd node and the forward line that made it."""
@@ -39,16 +40,19 @@ class _DTensorOps(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-def dtensor_ops(arch: str, shape: str, policy: str, **overrides) -> list:
+def dtensor_ops(arch: str, shape: str, policy: str, notes=None,
+                batch_size: int = 2, **overrides) -> list:
     """(op, site) of each DTensor operation of the reduced ``arch``'s step
-    of ``shape`` (batch 2, 64 tokens) on a 2×2 fake world."""
+    of ``shape`` (batch ``batch_size``, 64 tokens) on a 2×2 fake world;
+    ``notes`` (a list) collects the ops run replicated."""
     cfg = configs.reduced(configs.get(arch)).with_(**overrides)
     seen = _DTensorOps()
     with fake_world(4):
         try:
             fn, args = tdry.build_step(cfg, shape, make_host_mesh(model=2),
-                                       policy, notes=[], seq_len=64,
-                                       batch_size=2)
+                                       policy,
+                                       notes=[] if notes is None else notes,
+                                       seq_len=64, batch_size=batch_size)
             with hlo._SiteStamp(), seen:
                 fn(*args)
         finally:

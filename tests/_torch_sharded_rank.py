@@ -4,8 +4,8 @@ case may override config fields), and
 the local shards of a tensor of distinct values under four specs; and of
 ``test_torch_head_split.py``'s worlds (``main_heads``: a mesh of the
 model-axis size given, configs with their head counts overridden; a
-case with ``prefill`` in its overrides runs the prefill step).  Rank
-0 saves what the test reads.  Imports no JAX."""
+case with ``prefill`` in its overrides runs the prefill step, and in
+``main`` a decode step after it).  Rank 0 saves what the test reads.  Imports no JAX."""
 import datetime
 import pathlib
 
@@ -83,7 +83,10 @@ def run_case(mesh, arch: str, policy: str, overrides=None) -> dict:
 def run_prefill_case(mesh, arch: str, policy: str, overrides=None) -> dict:
     """The prefill step on DTensor parameters (the serving layout of
     ``policy``'s base) against the plain prefill: last-token logits and
-    the cache, whole.  ``overrides``: config fields, and ``batch``."""
+    the cache, whole.  ``overrides``: config fields, ``batch``, and
+    ``decode``: then one decode step follows each prefill, from its cache
+    (the sharded one laid out by ``cache_partition``), under ``"decode"``
+    beside the prefill's results under ``"prefill"``."""
     from repro_torch import configs
     from repro_torch.launch import shardings as SH
     from repro_torch.launch import steps
@@ -93,6 +96,7 @@ def run_prefill_case(mesh, arch: str, policy: str, overrides=None) -> dict:
 
     overrides = dict(overrides or {})
     B = overrides.pop("batch", 4)
+    decode = overrides.pop("decode", False)
     cfg = configs.reduced(configs.get(arch)).with_(dtype=torch.float32,
                                                    **overrides)
     params = T.init_params(cfg, 0, device="cpu")
@@ -103,23 +107,42 @@ def run_prefill_case(mesh, arch: str, policy: str, overrides=None) -> dict:
     gen = torch.Generator().manual_seed(1)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
                                      generator=gen, dtype=torch.int32)}
-    dbatch = SH.distribute_tree(batch, SH.batch_partition(cfg, batch, mesh),
-                                mesh)
-    prefill = steps.make_prefill_step(cfg, cache_len=S)
+    nxt = {"tokens": torch.randint(0, cfg.vocab_size, (B, 1),
+                                   generator=gen, dtype=torch.int32)}
+    dbatch, dnxt = (SH.distribute_tree(b, SH.batch_partition(cfg, b, mesh),
+                                       mesh) for b in (batch, nxt))
+    prefill = steps.make_prefill_step(cfg, cache_len=S + decode)
+    serve = steps.make_serve_step(cfg)
     notes = []
     shard_ctx.set_sharder(SH.make_activation_sharder(mesh, set(variants))
                           if variants else None)
     try:
         with steps.mesh_context(sharded, notes):
             logits, cache = prefill(sharded, dbatch)
+            out = {"logits": logits.full_tensor(),
+                   "cache": tree_map(lambda x: x.full_tensor(), cache)}
+            if decode:
+                cache = SH.distribute_tree(
+                    tree_map(lambda x: x.full_tensor(), cache),
+                    SH.cache_partition(cfg, cache, mesh), mesh)
+                logits, cache = serve(sharded, cache,
+                                      dict(dnxt, position=S))
+                out = {"prefill": out, "decode": {
+                    "logits": logits.full_tensor(),
+                    "cache": tree_map(lambda x: x.full_tensor(), cache)}}
     finally:
         shard_ctx.set_sharder(None)
-    out = {"logits": logits.full_tensor(),
-           "cache": tree_map(lambda x: x.full_tensor(), cache),
-           "notes": notes}
+    out["notes"] = notes
     if dist.get_rank() == 0:
         ref_logits, ref_cache = prefill(params, batch)
-        out["ref"] = {"logits": ref_logits, "cache": ref_cache}
+        ref = {"logits": ref_logits, "cache": ref_cache}
+        if decode:
+            ref_cache = tree_map(lambda x: x.clone(), ref_cache)
+            d_logits, d_cache = serve(params, ref_cache,
+                                      dict(nxt, position=S))
+            ref = {"prefill": ref, "decode": {"logits": d_logits,
+                                              "cache": d_cache}}
+        out["ref"] = ref
     return out
 
 
@@ -141,9 +164,16 @@ def main(rank: int, world: int, init: str, cases, out_dir: str) -> None:
         res = {"layout": [distribute_tensor(x, mesh, to_placements(s, mesh),
                                             src_data_rank=None)
                           .to_local() for s in LAYOUT_SPECS]}
-        # (arch, policy) or (arch, policy, name, config overrides)
+        # (arch, policy) or (arch, policy, name, config overrides); a
+        # case with ``prefill`` in its overrides runs the prefill and a
+        # decode step
         for case in cases:
-            res[case[:3]] = run_case(mesh, *case[:2], *case[3:])
+            over = dict(case[3]) if case[3:] else {}
+            if over.pop("prefill", False):
+                res[case[:3]] = run_prefill_case(mesh, *case[:2],
+                                                 dict(over, decode=True))
+            else:
+                res[case[:3]] = run_case(mesh, *case[:2], *case[3:])
         torch.save(res, pathlib.Path(out_dir) / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()

@@ -82,5 +82,5 @@ def test_contraction_over_a_sharded_dim_all_reduces():
                               [Replicate(), Shard(0)], src_data_rank=None)
         counts, _ = thlo.analyze(fn, x, w, device="meta")
     assert counts["flops"] == 2 * M * (K // 2) * N
-    [(kind, out_bytes, n, _)] = list(counts["sites"])
-    assert (kind, out_bytes, n) == ("all-reduce", M * N * 4, 2)
+    [((kind, n, _), (count, out_bytes))] = list(counts["sites"].items())
+    assert (kind, n, count, out_bytes) == ("all-reduce", 2, 1.0, M * N * 4)

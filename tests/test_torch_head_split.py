@@ -55,9 +55,11 @@ def test_train_step_on_16x16_keeps_the_heads_sharded(train_runs, policy):
     assert _attention_sites(res["notes"]) == []
     share = res["model_flops_per_device"]
     assert share < res["flops_per_device"] < 3 * share
+    # the loss's gold logit is picked on each vocabulary shard
+    # (shard_ctx.loss_local): nothing of the step runs replicated
     assert [n["site"] for n in res["notes"]
-            if n["op"] == "aten.gather.default"] == \
-        ["repro_torch/models/transformer.py:321"]
+            if n["op"] == "aten.gather.default"] == []
+    assert res["notes"] == []
 
 
 def test_the_count_does_not_depend_on_the_residual_streams_layout(

@@ -435,13 +435,22 @@ def test_nested_loop_flops_match_reference():
 
 
 def test_combine_scales_counts_and_sites():
-    a = {"flops": 10.0, "pointwise_flops": 1.0, "traffic_bytes": 4.0,
-         "peak_bytes": 2.0, "sites": {("all-gather", 8, 2, "x:1"): 1.0}}
-    b = {"flops": 16.0, "pointwise_flops": 1.0, "traffic_bytes": 6.0,
-         "peak_bytes": 3.0, "sites": {("all-gather", 8, 2, "x:1"): 2.0}}
+    """Sites combine by (kind, group size, provenance), count and output
+    bytes apart: a collective repeated with the body grows in count, and
+    one a step whose bytes grow with the body (a stacked leaf's gather)
+    stays one collective of the whole stack's bytes."""
+    def counts(flops, rep, stacked):
+        return {"flops": flops, "pointwise_flops": 1.0, "traffic_bytes": 4.0,
+                "peak_bytes": 2.0,
+                "sites": {("all-gather", 2, "x:1"): [rep, 8.0 * rep],
+                          ("all-gather", 2, "w:2"): [1.0, stacked]}}
+
+    a, b = counts(10.0, 1.0, 100.0), counts(16.0, 2.0, 200.0)
     per = thlo.combine([(1.0, b), (-1.0, a)])
     assert per["flops"] == 6.0 and per["sites"] == {
-        ("all-gather", 8, 2, "x:1"): 1.0}
+        ("all-gather", 2, "x:1"): [1.0, 8.0],
+        ("all-gather", 2, "w:2"): [0.0, 100.0]}
     s = thlo.summarize(thlo.combine([(1.0, a), (3.0, per)]), loops=[1])
-    assert s["collectives"]["all-gather"]["count"] == 4.0
-    assert s["wire_bytes"] == 4 * 8 * 0.5 and s["loops"] == [1]
+    assert s["collectives"]["all-gather"]["count"] == 4.0 + 1.0
+    assert s["collectives"]["all-gather"]["out_bytes"] == 4 * 8 + 400
+    assert s["wire_bytes"] == (4 * 8 + 400) * 0.5 and s["loops"] == [1]

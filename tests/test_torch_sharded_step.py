@@ -56,10 +56,24 @@ CASES = [("qwen3_0p6b", "fsdp_tp"), ("qwen3_0p6b", "tp"),
          # sequence shard (a batch of 2: a row a data shard)
          ("qwen3_0p6b", "fsdp_tp+act"), ("qwen3_0p6b", "fsdp"),
          ("qwen3_0p6b", "fsdp_tp", "batch_2", {"batch": 2}),
-         # the mamba scan's channels over ``model``
+         # the recurrent blocks' channels over ``model``
          # (shard_ctx.channels_local); the hybrid's stream replicated there
-         ("falcon_mamba_7b", "fsdp_tp"), ("recurrentgemma_9b", "fsdp_tp")]
+         ("falcon_mamba_7b", "fsdp_tp"), ("recurrentgemma_9b", "fsdp_tp"),
+         # ... and pinned there by ``+act``
+         ("recurrentgemma_9b", "fsdp_tp+act"),
+         # the loss's vocabulary over ``model`` (shard_ctx.loss_local):
+         # under ``tp`` with a row a data shard, the stream takes a
+         # sequence shard over ``model``, gathered for the LM head
+         ("qwen3_0p6b", "tp", "batch_2", {"batch": 2})]
 MOE = [c for c in CASES if "moe" in c[0] or "scout" in c[0]]
+# the serving layout's prefill, then a decode step from its cache: the
+# recurrent blocks' channels over ``model``, a batch shard over ``data``;
+# with a batch of one, the channels over both
+PREFILL = [("recurrentgemma_9b", "tp", "prefill_decode", {"prefill": True}),
+           ("recurrentgemma_9b", "tp", "prefill_decode_batch_1",
+            {"prefill": True, "batch": 1}),
+           ("falcon_mamba_7b", "tp", "prefill_decode_batch_1",
+            {"prefill": True, "batch": 1})]
 RTOL = 1e-5
 
 
@@ -75,7 +89,8 @@ def ranks(tmp_path_factory):
     src = str(here.parent / "src")
     if src not in env.split(os.pathsep):
         os.environ["PYTHONPATH"] = os.pathsep.join(p for p in (src, env) if p)
-    procs = [ctx.Process(target=R.main, args=(r, 4, init, CASES, str(out)))
+    procs = [ctx.Process(target=R.main,
+                         args=(r, 4, init, CASES + PREFILL, str(out)))
              for r in range(4)]
     for p in procs:
         p.start()
@@ -131,18 +146,16 @@ def test_updated_leaves_keep_their_placements(ranks):
     # (d, Vp) lm_head: fsdp over data on d, tensor-parallel on Vp
     assert placements["lm_head"] == "(Shard(dim=0), Shard(dim=1))"
     assert placements["final_norm"] == "(Replicate(), Replicate())"
-    # the loss's gold-logit gather always runs with its vocabulary dim
-    # replicated; which other ops DTensor refuses depends on the torch
-    # version (2.11 adds the embedding's backward index_put), but never
-    # one of attention's: its heads' layout is the port's
+    # the loss's gold logit is picked on each vocabulary shard
+    # (shard_ctx.loss_local), so nothing runs replicated at the loss's
+    # lines, and nothing anywhere in the step
+    sys.path.insert(0, str(pathlib.Path(__file__).parents[1]))
+    import chip_smoke
+    from repro_torch.models import transformer as T
     notes = ranks[0][("qwen3_0p6b", "fsdp_tp")]["notes"]
-    gather = [n for n in notes if n["op"] == "aten.gather.default"]
-    assert [n["site"] for n in gather] == \
-        ["repro_torch/models/transformer.py:321"]
-    for n in notes:
-        assert n["layout"] == "Replicate" and n["reason"], n
-        assert n["site"].startswith(("repro_torch/models/", "backward:")), n
-        assert "attention.py" not in n["site"], n
+    assert [n for n in notes if n["op"] == "aten.gather.default"
+            or n["site"] in chip_smoke._loss_sites(T)] == []
+    assert notes == []
 
 
 @pytest.mark.parametrize("case", MOE, ids=[_id(c) for c in MOE])
@@ -161,6 +174,36 @@ def test_no_step_runs_the_lookup_replicated(ranks, case):
     notes = ranks[0][case[:3]]["notes"]
     assert [n for n in notes if "Index" in n["site"]
             or "Embedding" in n["site"] or "index" in n["op"]] == []
+
+
+@pytest.mark.parametrize("case", CASES, ids=[_id(c) for c in CASES])
+def test_no_step_runs_anything_replicated(ranks, case):
+    """Every model operation of every case's step takes a layout of the
+    port's own (the loss's vocabulary and the Griffin block's channels
+    last): the fallback records nothing."""
+    assert ranks[0][case[:3]]["notes"] == []
+
+
+@pytest.mark.parametrize("case", PREFILL, ids=[_id(c) for c in PREFILL])
+def test_sharded_prefill_and_decode_equal_unsharded(ranks, case):
+    """The hybrid's prefill (last-token logits, every cache tensor), then
+    a decode step from that cache (its logits and the updated cache), on
+    the 2×2 mesh under the serving layout against the plain ones: each
+    element to ``RTOL`` of its tensor's largest magnitude (the shards'
+    partial sums add in another order); nothing runs replicated."""
+    got = ranks[0][case[:3]]
+    for step in ("prefill", "decode"):
+        want = dict(_leaves(got["ref"][step]["cache"]),
+                    logits=got["ref"][step]["logits"])
+        leaves = dict(_leaves(got[step]["cache"]),
+                      logits=got[step]["logits"])
+        assert leaves.keys() == want.keys()
+        for k, leaf in leaves.items():
+            assert leaf.shape == want[k].shape, (step, k)
+            scale = want[k].abs().max().item()
+            assert (leaf - want[k]).abs().max().item() <= RTOL * scale, \
+                (step, k)
+    assert got["notes"] == []
 
 
 def test_local_shards_are_jax_row_major_blocks(ranks):
